@@ -9,11 +9,15 @@ the CUDA toolkit; imports no JAX.  Run from the repository root:
 Phases, each fatal on failure:
 
 1. print the card's name and power limit; build the three kernels
-   (one ``nvcc`` per source, all at once);
+   (one ``nvcc`` per source, all at once), print ptxas's register and
+   spill lines, and fail if any kernel spills;
 2. hold each kernel against its plain PyTorch version on the card —
-   on the reference kernels' contract ladders and at the main path's
+   on the reference kernels' contract ladders (kernel 2 at d = 1, 4,
+   8, 16 and 24, and on an all-masked micrograph; kernel 3 also with
+   no valid clique and with every clique valid) and at the main path's
    chunk shape (32 micrographs of the synthetic set): integer and
-   boolean outputs equal, floats equal (tolerance 0);
+   boolean outputs equal, floats equal (tolerance 0); print kernel 3's
+   chain at the chunk (ascent steps, greedy rounds, block barriers);
 3. run ``python -m repic_tpu_torch consensus examples/10017 OUT 180``
    for ``lp_device``, ``lp_device --pallas`` and ``lp_device_fused``
    and compare every BOX file byte for byte with the JAX package's
@@ -37,6 +41,7 @@ Everything long goes to ``chiprun_out/chip_smoke/``.
 import filecmp
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -174,6 +179,10 @@ def ladder_k2():
         mask = rng.uniform(size=(k, n)) > 0.15
         yield f"K{k} N{n}", [torch.from_numpy(a)[None].cuda()
                              for a in (xy, conf, mask)]
+        if (k, n) == (3, 64):
+            yield "K3 N64 all masked", [
+                torch.from_numpy(a)[None].cuda()
+                for a in (xy, conf, np.zeros_like(mask))]
 
 
 def ladder_k3():
@@ -192,6 +201,11 @@ def ladder_k3():
         valid = rng.uniform(size=(m, c)) > 0.2
         yield f"C{c} K{k} V{v}", v, [torch.from_numpy(a).cuda()
                                      for a in (mv, w, valid)]
+        if (c, k) == (100, 4):
+            for what, fill in (("no valid", np.zeros_like(valid)),
+                               ("all valid", np.ones_like(valid))):
+                yield f"C{c} K{k} V{v} {what}", v, [
+                    torch.from_numpy(a).cuda() for a in (mv, w, fill)]
     # candidates a float32 rounding apart: the order of the objective
     # sums decides (one and two levels of window sums)
     for gadgets, background in ((1, 60), (2, 200), (4, 5000)):
@@ -230,12 +244,19 @@ def main() -> int:
     _build.build_all()
     log(f"phase 1: built {len(_build.KERNELS)} kernel sources in "
         f"{time.time() - t:.1f}s")
+    spills = []
     for name, text in _build.BUILD_LOGS.items():
         with open(os.path.join(OUT, f"ptxas_{name}.txt"), "w") as f:
             f.write(text)
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError("ptxas reports spills:\n" + "\n".join(spills))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -256,7 +277,9 @@ def main() -> int:
                 compare(f"topk {label} d{d}", got, want))
     for label, (xy, conf, mask) in ladder_k2():
         k, n = xy.shape[1:3]
-        for d in (4, 24):
+        # d = 1, 4, 8: lane lists of 8 slots; 16: of 16; 24: the per-warp
+        # list in memory
+        for d in (1, 4, 8, 16, 24):
             if min(d, n) ** (k - 1) > 4096:
                 continue
             kw = dict(threshold=0.3, max_neighbors=d, clique_capacity=1024)
@@ -273,6 +296,8 @@ def main() -> int:
         want = megakernel.fused_dual_solve_plain(mv, w, valid, v)
         torch.cuda.synchronize()
         compare("dual " + label, [got], [want])
+        compare("dual steps " + label, [megakernel.SOLVE_CHAIN[:, 0]],
+                [dual.solve_dual_decomposition(mv, w, valid, v).iterations])
     log("phase 2: contract ladders equal (kernels 1-3)")
 
     # the main path's chunk: 32 micrographs of the synthetic set
@@ -356,9 +381,23 @@ def main() -> int:
         megakernel.fused_cliqueset(db.xy, db.conf, db.mask, BOX, **kw), cap)
     vid, nv = consensus.pack_cliques_for_solver(cs.member_idx, cs.valid, n)
     got = megakernel.fused_dual_solve(vid, cs.w, cs.valid, nv)
+    chain = megakernel.SOLVE_CHAIN.cpu()
     stats = dual.solve_dual_decomposition(vid, cs.w, cs.valid, nv)
     compare("dual chunk", [got], [stats.picked])
+    compare("dual steps chunk", [chain[:, 0].to(dev)], [stats.iterations])
     c3 = vid.shape[1]
+    steps = chain[:, 0]
+    rounds = chain[:, 1:7]
+    chain_report = {
+        "ascent_steps_sum": int(steps.sum()),
+        "ascent_steps_max": int(steps.max()),
+        "greedy_rounds_per_fixpoint_mean": float(rounds.double().mean()),
+        "greedy_rounds_per_fixpoint_max": int(rounds.max()),
+        "greedy_rounds_per_solve_mean": float(rounds.sum(1).double().mean()),
+        "barriers_per_solve_mean": float(chain[:, 7].double().mean()),
+        "barriers_per_solve_max": int(chain[:, 7].max()),
+    }
+    log("kernel 3 chain at the chunk: " + json.dumps(chain_report))
     # per ascent step: the reduced cost of each valid clique (k loads
     # and adds, a compare) and the price step of each vertex (sub, mul,
     # add, max, the change and its max); each of the six greedy passes
@@ -517,7 +556,7 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
     report = {"card": card, "kernels": kernels, "cli_10017": cli_runs,
-              "synthetic_256": rates}
+              "synthetic_256": rates, "dual_chain": chain_report}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

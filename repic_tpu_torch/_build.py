@@ -44,8 +44,8 @@ KERNELS = {
         "repic_clique_write": ["p"] * 18 + ["i"] * 5 + ["f", "p"],
     },
     "dual": {
-        "repic_dual_smem_bytes": ["i", "i"],
-        "repic_dual_solve": ["p"] * 5 + ["i"] * 6 + ["f", "p"],
+        "repic_dual_smem_bytes": ["i", "i", "i"],
+        "repic_dual_solve": ["p"] * 6 + ["i"] * 6 + ["f", "p"],
     },
 }
 

@@ -9,350 +9,608 @@
 // greedy pass in reduced-cost order plus a greedy repair pass by raw
 // weight, and the best by true objective (first maximum).
 //
-// Design: the block keeps the prices (lam, lam_sum, ax), the greedy
-// scratch (best_w, best_idx, used; V + 1 each, slot V the sentinel)
-// and the per-clique flags in dynamic shared memory when they fit,
-// in a global scratch slice otherwise.  The greedy fixpoint rounds
-// synchronise at block level.  Atomics appear only where the result
-// is order-independent: the ax scatter of 1.0 (exact integer counts),
-// float max of positive priorities (as int bits) and int min of clique
-// indices.  Every other sum has a fixed order: lam[member_vertex] adds
-// slot 0..K-1, and the float32 objective sums take the reference's CPU
-// order (objective_sum below) over the reference kernel's width, C
-// rounded up to a multiple of 128.  The price step is one explicit
-// fmaf — the reference's CPU program contracts that expression too;
-// the build's --fmad=false keeps every other expression unfused.
+// Bound on this card: not bytes or operations but one SM's chain —
+// each ascent step and each greedy round is a few short passes that
+// must see each other's writes, one block per micrograph (32 of 132 SMs
+// at M = 32).  With the state in shared memory, an ascent step is bound
+// by that SM's shared-memory traffic: the gathers of lam at random
+// members, the count atomics, and the price pass's loads and stores.
+// The design shortens the chain and the passes in it:
 //
-// Bound on this card: operations and latency — per iteration O(C K)
-// gathers plus O(V) updates, ~20 block barriers per greedy round;
-// one block per micrograph leaves most SMs idle at 32 micrographs.
+// - The block stages its packing in shared memory once: the valid
+//   cliques, compacted in position order (one ballot scan), as member
+//   ids (uint16 when V <= 65535), weights and positions.  Every later
+//   pass walks those nv cliques, never C, and never global memory.  The
+//   staging uses plain coalesced loads: it compacts as it copies, which
+//   a bulk copy cannot.  A solve whose state does not fit in shared
+//   memory keeps the same layout in a global scratch slice.
+// - An ascent step takes two barriers: the scatter of the clique
+//   indicators (ax += 1 at the members of each clique of positive
+//   reduced cost) and the price pass.  The price pass reads and clears
+//   ax (each vertex by its own thread), and reduces max|dlam| per warp
+//   with __reduce_max_sync on the float bits (every value is >= +0);
+//   the per-warp maxima are read after the barrier the next step needs
+//   anyway.
+// - The greedy fixpoints walk worklists of alive cliques, rebuilt each
+//   round with warp-aggregated appends (a list's order does not matter:
+//   every test in a round is per clique or an order-free max).  A round
+//   is three passes: each alive clique offers the 64-bit key (priority
+//   bits, then the complement of its index) at its members with
+//   atomicMax — the maximum priority, then the minimum index among
+//   ties, the rule of repic_tpu's solve_greedy; a clique whose key holds
+//   at every member is selected and marks its members used; the others
+//   survive unless a member is used, and a survivor resets the key at
+//   its members for the next round.  `used` is cleared once per
+//   candidate, so after the first fixpoint it marks exactly the picks'
+//   members, which the repair pass starts from.
+// - The objective sums keep the order of solver/dual.py: objective_sum
+//   over the reference kernel's width (C rounded up to 128): the first
+//   level's 32-position windows are ranges of the compacted list
+//   (positions of unpicked or invalid cliques add +0.0, which leaves a
+//   sum of positive terms unchanged), the later levels run on one warp,
+//   and one lane adds the last <= 32 terms in index order.
+//
+// Float rules: the sum of lam[member] adds slot 0..K-1; the price step
+// is one explicit fmaf (the reference's CPU program contracts that
+// expression); the build's --fmad=false keeps every other expression
+// unfused.  Atomics appear only where the result is order-independent:
+// the integer counts ax (the reference's float32 ax holds the same
+// integers) and the key maximum.
 #include <cuda_runtime.h>
-#include <float.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 // the reference kernel pads C to its lane width; the objective sums run
 // over that width
 constexpr int kLane = 128;
 // window of the reference's CPU tree reduction (solver/dual.py:
 // SUM_WINDOW)
 constexpr int kWindow = 32;
+// per-micrograph counters: ascent steps, greedy rounds of the six
+// fixpoints, block barriers
+constexpr int kStats = 8;
 
 __host__ __device__ inline int sum_width(int c) {
   return (c + kLane - 1) / kLane * kLane;
 }
 
 struct Layout {
-  size_t lam, lam_sum, ax, best_w, prio, best_idx, used, alive, cur,
-      cand, sums, total;
+  size_t mv, w, pos, prio, pick, list0, list1, lam, lam_sum, ax, best,
+      used, win, sums, total;
 };
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
-__host__ __device__ inline Layout make_layout(int c, int v) {
+// bytes of a staged member id
+__host__ __device__ inline int id_bytes(int v) { return v <= 65535 ? 2 : 4; }
+
+__host__ __device__ inline Layout make_layout(int c, int k, int v) {
+  const size_t nwin = sum_width(c) / kWindow;
   Layout L;
   size_t o = 0;
+  L.mv = o;       o = align16(o + (size_t)id_bytes(v) * c * k);
+  L.w = o;        o = align16(o + 4 * (size_t)c);
+  L.pos = o;      o = align16(o + 4 * (size_t)c);
+  L.prio = o;     o = align16(o + 4 * (size_t)c);
+  L.pick = o;     o = align16(o + 3 * (size_t)c);
+  L.list0 = o;    o = align16(o + 4 * (size_t)c);
+  L.list1 = o;    o = align16(o + 4 * (size_t)c);
   L.lam = o;      o = align16(o + 4 * (size_t)v);
   L.lam_sum = o;  o = align16(o + 4 * (size_t)v);
-  L.ax = o;       o = align16(o + 4 * (size_t)(v + 1));
-  L.best_w = o;   o = align16(o + 4 * (size_t)(v + 1));
-  L.prio = o;     o = align16(o + 4 * (size_t)c);
-  L.best_idx = o; o = align16(o + 4 * (size_t)(v + 1));
-  L.used = o;     o = align16(o + (size_t)(v + 1));
-  L.alive = o;    o = align16(o + (size_t)c);
-  L.cur = o;      o = align16(o + (size_t)c);
-  L.cand = o;     o = align16(o + 3 * (size_t)c);
-  // two buffers of window sums, each sum_width(c) / kWindow floats
-  L.sums = o;     o = align16(o + 8 * (size_t)(sum_width(c) / kWindow));
+  L.ax = o;       o = align16(o + 4 * (size_t)v);
+  L.best = o;     o = align16(o + 8 * (size_t)v);
+  L.used = o;     o = align16(o + (size_t)v);
+  L.win = o;      o = align16(o + 4 * (nwin + 1));
+  // two halves of window sums for the levels past the first
+  L.sums = o;     o = align16(o + 8 * nwin);
   L.total = o;
   return L;
 }
 
-__device__ float block_max(float x, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) r = fmaxf(r, red[i]);
-  return r;
-}
-
+template <typename VT>
 struct Solve {
-  const int* mv;        // (C, K) of this micrograph
-  const float* w;       // (C,)
-  const uint8_t* valid; // (C,)
-  int c, k, v;
-  float* lam;
-  float* lam_sum;
-  float* ax;
-  float* best_w;
-  float* prio;
-  int* best_idx;
-  uint8_t* used;
-  uint8_t* alive;  // 0 dead, 1 alive, 2 selected this round
-  uint8_t* cur;
+  const VT* __restrict__ mv;  // (nv, K) staged member ids of the valid cliques
+  const float* __restrict__ w;  // (nv,)
+  float* __restrict__ prio;     // (nv,)
+  int* list0;       // worklists of compacted clique indices: build g
+  int* list1;       // writes list0 when g is even, list1 when odd
+  int* list_cnt;    // 4 counters, rotating with the build generation
+  float* __restrict__ lam;
+  float* __restrict__ lam_sum;
+  int* __restrict__ ax;  // (V,) clique counts of the ascent step
+  unsigned long long* __restrict__ best;  // (V,) greedy keys
+  uint8_t* __restrict__ used;             // (V,)
+  const int* __restrict__ win;  // (nwin + 1,) first compacted index of each window
+  float* sums;      // window sums past the first level
+  float* obj_out;
+  int c;
 };
 
-__device__ inline float wv_of(const Solve& S, int i) {
-  return S.valid[i] ? S.w[i] : 0.0f;
+__device__ __forceinline__ void bar(int& nbar) {
+  __syncthreads();
+  ++nbar;
 }
 
-__device__ inline float gather_sum(const Solve& S, const float* prices,
-                                   int i) {
-  const int* r = S.mv + (size_t)i * S.k;
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long greedy_key(float prio,
+                                                         int idx) {
+  // prio > 0: its bits order as the value
+  return ((unsigned long long)__float_as_uint(prio) << 32) |
+         (unsigned)(~idx);
+}
+
+// Append idx to out (every lane of the warp calls it, converged).
+__device__ __forceinline__ void append(int* out, int* counter, bool keep,
+                                       int idx) {
+  const unsigned bal = __ballot_sync(kFull, keep);
+  if (bal == 0) return;
+  const int lane = threadIdx.x & 31;
+  int at = 0;
+  if (lane == 0) at = atomicAdd(counter, __popc(bal));
+  at = __shfl_sync(kFull, at, 0);
+  if (keep) out[at + __popc(bal & ((1u << lane) - 1u))] = idx;
+}
+
+template <typename VT>
+__device__ __forceinline__ int* list_of(const Solve<VT>& S, int g) {
+  return (g & 1) ? S.list1 : S.list0;
+}
+
+// A list build is a pass that appends to list_of(g) under counter
+// list_cnt[g & 3]; it clears list_cnt[(g + 2) & 3] for build g + 2.
+// Builds are at least one barrier apart, so a counter is never cleared
+// while it is read or written.
+template <typename VT>
+__device__ __forceinline__ int* begin_build(const Solve<VT>& S, int g) {
+  if (threadIdx.x == 0) S.list_cnt[(g + 2) & 3] = 0;
+  return list_of(S, g);
+}
+
+template <typename VT, int K>
+__device__ __forceinline__ float gather_sum(const Solve<VT>& S,
+                                            const float* __restrict__ prices,
+                                            int idx) {
+  const VT* r = S.mv + (size_t)idx * K;
   float s = prices[r[0]];
-  for (int j = 1; j < S.k; ++j) s = s + prices[r[j]];
+#pragma unroll
+  for (int j = 1; j < K; ++j) s = s + prices[r[j]];
   return s;
 }
 
-// Float32 sum of the picked weights (cur) over a row of sum_width(c)
-// terms, those past c zero, in the order of solver/dual.py:
-// objective_sum: while more than kWindow terms remain, zero-pad to a
-// multiple of kWindow (half the padding in front) and replace the row
-// by its window sums; then add what is left.  Every sum starts at 0 and
-// adds in index order.  The levels alternate between the two halves of
-// sums.
-__device__ float objective_sum(const Solve& S, float* sums, float* out) {
+// solve_greedy to its fixpoint over the list built by build g - 1 (n
+// cliques, each with prio > 0 and its members' keys reset); picks go to
+// cur.  Returns the number of rounds.
+template <typename VT, int K>
+__device__ __forceinline__ int greedy(const Solve<VT>& S, uint8_t* cur,
+                                      int n, int& g, int& nbar) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int half = sum_width(S.c) / kWindow;
-  const float* src = nullptr;  // nullptr: the terms themselves
-  float* dst = sums;
-  int len = sum_width(S.c);
-  while (len > kWindow) {
-    const int pad = (kWindow - len % kWindow) % kWindow, lo = pad / 2;
-    const int n = (len + pad) / kWindow;
-    for (int j = tid; j < n; j += nt) {
-      float acc = 0.0f;
-      for (int e = 0; e < kWindow; ++e) {
-        const int i = j * kWindow - lo + e;
-        float x = 0.0f;
-        if (i >= 0 && i < len)
-          x = src ? src[i] : (i < S.c && S.cur[i] ? wv_of(S, i) : 0.0f);
-        acc = acc + x;
-      }
-      dst[j] = acc;
+  int rounds = 0;
+  while (n > 0) {
+    ++rounds;
+    const int* in = list_of(S, g - 1);
+    for (int li = tid; li < n; li += nt) {
+      const int idx = in[li];
+      const VT* r = S.mv + (size_t)idx * K;
+      const unsigned long long key = greedy_key(S.prio[idx], idx);
+#pragma unroll
+      for (int j = 0; j < K; ++j) atomicMax(&S.best[r[j]], key);
     }
-    __syncthreads();
-    src = dst;
-    dst = dst == sums ? sums + half : sums;
-    len = n;
-  }
-  if (tid == 0) {
-    float acc = 0.0f;
-    for (int i = 0; i < len; ++i)
-      acc = acc + (src ? src[i] : (i < S.c && S.cur[i] ? wv_of(S, i) : 0.0f));
-    *out = acc;
-  }
-  __syncthreads();
-  return *out;
-}
-
-// solve_greedy to its fixpoint over the cliques marked alive (prio > 0
-// required by the caller); picks are OR-ed into cur.
-__device__ void greedy(const Solve& S) {
-  const int c = S.c, k = S.k, v = S.v;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  bool any = false;
-  for (int i = tid; i < c; i += nt) any = any || S.alive[i];
-  while (__syncthreads_or(any)) {
-    for (int j = tid; j <= v; j += nt) {
-      S.best_w[j] = -INFINITY;
-      S.best_idx[j] = INT_MAX;
-      S.used[j] = 0;
-    }
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      if (!S.alive[i]) continue;
-      const int* r = S.mv + (size_t)i * k;
-      const int bits = __float_as_int(S.prio[i]);  // prio > 0
-      for (int j = 0; j < k; ++j) atomicMax((int*)&S.best_w[r[j]], bits);
-    }
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      if (!S.alive[i]) continue;
-      const int* r = S.mv + (size_t)i * k;
-      for (int j = 0; j < k; ++j)
-        if (S.prio[i] >= S.best_w[r[j]]) atomicMin(&S.best_idx[r[j]], i);
-    }
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      if (!S.alive[i]) continue;
-      const int* r = S.mv + (size_t)i * k;
+    bar(nbar);
+    for (int li = tid; li < n; li += nt) {
+      const int idx = in[li];
+      const VT* r = S.mv + (size_t)idx * K;
+      const unsigned long long key = greedy_key(S.prio[idx], idx);
       bool sel = true;
-      for (int j = 0; j < k; ++j)
-        sel = sel && S.prio[i] >= S.best_w[r[j]] && S.best_idx[r[j]] == i;
+#pragma unroll
+      for (int j = 0; j < K; ++j) sel = sel && S.best[r[j]] == key;
       if (sel) {
-        S.alive[i] = 2;
-        for (int j = 0; j < k; ++j) S.used[r[j]] = 1;
+        cur[idx] = 1;
+#pragma unroll
+        for (int j = 0; j < K; ++j) S.used[r[j]] = 1;
       }
     }
-    __syncthreads();
-    any = false;
-    for (int i = tid; i < c; i += nt) {
-      if (!S.alive[i]) continue;
-      if (S.alive[i] == 2) {
-        S.cur[i] = 1;
-        S.alive[i] = 0;
-        continue;
+    bar(nbar);
+    int* out = begin_build(S, g);
+    for (int b = 0; b < n; b += nt) {
+      const int li = b + tid;
+      bool keep = false;
+      int idx = 0;
+      if (li < n) {
+        idx = in[li];
+        if (!cur[idx]) {
+          const VT* r = S.mv + (size_t)idx * K;
+          bool hit = false;
+#pragma unroll
+          for (int j = 0; j < K; ++j) hit = hit || S.used[r[j]];
+          if (!hit) {
+            keep = true;
+#pragma unroll
+            for (int j = 0; j < K; ++j) S.best[r[j]] = 0ull;
+          }
+        }
       }
-      const int* r = S.mv + (size_t)i * k;
-      bool hit = false;
-      for (int j = 0; j < k; ++j) hit = hit || S.used[r[j]];
-      if (hit) S.alive[i] = 0;
-      any = any || S.alive[i];
+      append(out, &S.list_cnt[g & 3], keep, idx);
     }
+    bar(nbar);
+    n = S.list_cnt[g & 3];
+    ++g;
   }
+  return rounds;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Float32 sum of the picked weights over a row of sum_width(c)
+// positions, in the order of solver/dual.py: objective_sum: while more
+// than kWindow terms remain, zero-pad to a multiple of kWindow (half
+// the padding in front) and replace the row by its window sums; then
+// add what is left.  Every sum starts at 0 and adds in index order.
+// The first level needs no padding (sum_width is a multiple of 128).
+template <typename VT>
+__device__ __forceinline__ float objective_sum(const Solve<VT>& S,
+                                               const uint8_t* cur,
+                                               int& nbar) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int nwin = sum_width(S.c) / kWindow;
+  for (int j = tid; j < nwin; j += nt) {
+    float acc = 0.0f;
+    for (int idx = S.win[j]; idx < S.win[j + 1]; ++idx)
+      if (cur[idx]) acc = acc + S.w[idx];
+    S.sums[j] = acc;
+  }
+  bar(nbar);
+  if (tid < 32) {
+    const float* src = S.sums;
+    float* dst = S.sums + nwin;
+    int len = nwin;
+    while (len > kWindow) {
+      const int pad = (kWindow - len % kWindow) % kWindow, lo = pad / 2;
+      const int n = (len + pad) / kWindow;
+      for (int j = lane; j < n; j += 32) {
+        float acc = 0.0f;
+        for (int e = 0; e < kWindow; ++e) {
+          const int i = j * kWindow - lo + e;
+          acc = acc + (i >= 0 && i < len ? src[i] : 0.0f);
+        }
+        dst[j] = acc;
+      }
+      __syncwarp();
+      src = dst;
+      dst = dst == S.sums ? S.sums + nwin : S.sums;
+      len = n;
+    }
+    if (lane == 0) {
+      float acc = 0.0f;
+      for (int i = 0; i < len; ++i) acc = acc + src[i];
+      *S.obj_out = acc;
+    }
+  }
+  bar(nbar);
+  return *S.obj_out;
+}
+
+// cliques and vertices a thread takes at once in an ascent step, so
+// that their loads overlap
+constexpr int kUnroll = 4;
+
+// kSmem: the solve state lives in dynamic shared memory (known as
+// such to the compiler, so its loads, stores and atomics are shared-
+// memory instructions), else in this block's slice of scratch.
+template <typename VT, int K, bool kSmem>
+__global__ void __launch_bounds__(kThreads, 1)
     dual_solve_kernel(const int* __restrict__ mv_all,
                       const float* __restrict__ w_all,
                       const uint8_t* __restrict__ valid_all,
                       uint8_t* __restrict__ picked_all, uint8_t* scratch,
-                      int c, int k, int v, int num_iters, int use_smem,
+                      int* __restrict__ stats, int c, int v, int num_iters,
                       float tol) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float red_f[32];
-  __shared__ float sum_out;
+  __shared__ float red_f[kWarps];
+  __shared__ unsigned red_u[kWarps];
+  __shared__ int tile_cnt[2][kWarps];
+  __shared__ int list_cnt[4];
+  __shared__ float obj_out;
   const int m = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const Layout L = make_layout(c, v);
-  uint8_t* base = use_smem ? smem : scratch + (size_t)m * L.total;
-  Solve S;
-  S.mv = mv_all + (size_t)m * c * k;
-  S.w = w_all + (size_t)m * c;
-  S.valid = valid_all + (size_t)m * c;
-  S.c = c;
-  S.k = k;
-  S.v = v;
-  S.lam = (float*)(base + L.lam);
-  S.lam_sum = (float*)(base + L.lam_sum);
-  S.ax = (float*)(base + L.ax);
-  S.best_w = (float*)(base + L.best_w);
+  const int lane = tid & 31, warp = tid >> 5;
+  const Layout L = make_layout(c, K, v);
+  uint8_t* base = kSmem ? smem : scratch + (size_t)m * L.total;
+  VT* __restrict__ smv = (VT*)(base + L.mv);
+  float* __restrict__ sw = (float*)(base + L.w);
+  int* __restrict__ spos = (int*)(base + L.pos);
+  int* __restrict__ win = (int*)(base + L.win);
+  float* __restrict__ lam = (float*)(base + L.lam);
+  float* __restrict__ lam_sum = (float*)(base + L.lam_sum);
+  int* __restrict__ ax = (int*)(base + L.ax);
+  Solve<VT> S;
+  S.mv = smv;
+  S.w = sw;
   S.prio = (float*)(base + L.prio);
-  S.best_idx = (int*)(base + L.best_idx);
+  S.list0 = (int*)(base + L.list0);
+  S.list1 = (int*)(base + L.list1);
+  S.list_cnt = list_cnt;
+  S.lam = lam;
+  S.lam_sum = lam_sum;
+  S.ax = ax;
+  S.best = (unsigned long long*)(base + L.best);
   S.used = base + L.used;
-  S.alive = base + L.alive;
-  S.cur = base + L.cur;
-  uint8_t* cand = base + L.cand;
-  float* sums = (float*)(base + L.sums);
+  S.win = win;
+  S.sums = (float*)(base + L.sums);
+  S.obj_out = &obj_out;
+  S.c = c;
+  uint8_t* pick = base + L.pick;
+  const int* mv = mv_all + (size_t)m * c * K;
+  const float* w = w_all + (size_t)m * c;
+  const uint8_t* valid = valid_all + (size_t)m * c;
+  int nbar = 0;
 
-  // eta0 = max(max(wv), 1e-6)
-  float mx = -INFINITY;
-  for (int i = tid; i < c; i += nt) mx = fmaxf(mx, wv_of(S, i));
-  const float eta0 = fmaxf(block_max(mx, red_f), 1e-6f);
+  // ---- stage the valid cliques, compacted in position order ----------
+  if (tid < 4) list_cnt[tid] = 0;
   for (int j = tid; j < v; j += nt) {
-    S.lam[j] = 0.0f;
-    S.lam_sum[j] = 0.0f;
+    lam[j] = 0.0f;
+    lam_sum[j] = 0.0f;
+    ax[j] = 0;
   }
+  const int nwin = sum_width(c) / kWindow;
+  const unsigned below = (1u << lane) - 1u;
+  int nv = 0;
+  float wmax = 0.0f;
+  int it = 0;
+  for (int t0 = 0; t0 < c; t0 += kThreads, ++it) {
+    const int i = t0 + tid;
+    const bool ok = i < c && valid[i];
+    const unsigned bal = __ballot_sync(kFull, ok);
+    if (lane == 0) tile_cnt[it & 1][warp] = __popc(bal);
+    bar(nbar);
+    int before = 0, tile = 0;
+    for (int x = 0; x < kWarps; ++x) {
+      const int cnt = tile_cnt[it & 1][x];
+      if (x < warp) before += cnt;
+      tile += cnt;
+    }
+    // the warp covers positions [t0 + 32 warp, +32): objective window
+    // (t0 >> 5) + warp, which starts at compacted index nv + before
+    const int wj = (t0 >> 5) + warp;
+    if (lane == 0 && wj < nwin) win[wj] = nv + before;
+    if (ok) {
+      const int at = nv + before + __popc(bal & below);
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        smv[(size_t)at * K + j] = (VT)mv[(size_t)i * K + j];
+      sw[at] = w[i];
+      spos[at] = i;
+      wmax = fmaxf(wmax, w[i]);
+    }
+    nv += tile;
+  }
+  // windows past the last tile hold no clique
+  for (int j = it * kWarps + tid; j <= nwin; j += nt) win[j] = nv;
+  if (tid == 0 && it * kWarps > nwin) win[nwin] = nv;
+  // eta0 = max(max(wv), 1e-6): max over the valid weights, and over the
+  // zeros of the invalid rows, which the 1e-6 floor absorbs
+  wmax = warp_max(wmax);
+  if (lane == 0) red_f[warp] = wmax;
+  bar(nbar);
+  float eta0 = red_f[0];
+  for (int x = 1; x < kWarps; ++x) eta0 = fmaxf(eta0, red_f[x]);
+  eta0 = fmaxf(eta0, 1e-6f);
+
+  // ---- dual ascent: two barriers a step ----------------------------
   const int half = num_iters / 2;
   int t = 0, n_tail = 0;
   float delta = INFINITY;
   while (t < num_iters && delta > tol) {
-    for (int j = tid; j <= v; j += nt) S.ax[j] = 0.0f;
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      if (!S.valid[i]) continue;
-      const float red = S.w[i] - gather_sum(S, S.lam, i);
-      if (red > 0.0f) {
-        const int* r = S.mv + (size_t)i * k;
-        for (int j = 0; j < k; ++j) atomicAdd(&S.ax[r[j]], 1.0f);
+    // ax += 1 at the members of each clique of positive reduced cost
+    // (integer counts: the float32 ax of the reference, exactly)
+    for (int b = tid; b < nv; b += kUnroll * nt) {
+      VT r[kUnroll][K];
+      bool pos[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        // past nv: a copy of the last clique's members, never scattered
+        // (unconditional loads keep the batch's loads overlapped)
+        const int idx = min(b + u * nt, nv - 1);
+#pragma unroll
+        for (int j = 0; j < K; ++j) r[u][j] = smv[(size_t)idx * K + j];
       }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int idx = b + u * nt;
+        pos[u] = false;
+        if (idx < nv) {
+          float s = lam[r[u][0]];
+#pragma unroll
+          for (int j = 1; j < K; ++j) s = s + lam[r[u][j]];
+          pos[u] = sw[idx] - s > 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (pos[u]) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) atomicAdd(&ax[r[u][j]], 1);
+        }
     }
-    __syncthreads();
+    bar(nbar);
+    // the price step; each vertex's ax is read and cleared by its thread
     const float eta = eta0 / (1.0f + (float)t);
     const bool in_tail = t >= half;
-    float dmax = 0.0f;
-    for (int j = tid; j < v; j += nt) {
-      const float old = S.lam[j];
-      const float nw = fmaxf(fmaf(eta, S.ax[j] - 1.0f, old), 0.0f);
-      dmax = fmaxf(dmax, fabsf(nw - old));
-      S.lam[j] = nw;
-      if (in_tail) S.lam_sum[j] = S.lam_sum[j] + nw;
+    unsigned dmax = 0u;
+    for (int b = tid; b < v; b += kUnroll * nt) {
+      float a[kUnroll], old[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = b + u * nt;
+        if (j < v) {
+          a[u] = (float)ax[j];
+          old[u] = lam[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = b + u * nt;
+        if (j < v) {
+          const float nw = fmaxf(fmaf(eta, a[u] - 1.0f, old[u]), 0.0f);
+          dmax = max(dmax, __float_as_uint(fabsf(nw - old[u])));
+          ax[j] = 0;
+          lam[j] = nw;
+          if (in_tail) lam_sum[j] = lam_sum[j] + nw;
+        }
+      }
     }
-    delta = block_max(dmax, red_f) / eta0;
+    dmax = __reduce_max_sync(kFull, dmax);
+    if (lane == 0) red_u[warp] = dmax;
+    bar(nbar);
+    dmax = __reduce_max_sync(kFull, red_u[lane < kWarps ? lane : 0]);
+    delta = __uint_as_float(dmax) / eta0;
     n_tail += in_tail;
     ++t;
   }
-  __syncthreads();
-  // lam_sum becomes the averaged prices
+  // lam_sum becomes the averaged prices (each vertex by the thread that
+  // wrote it; candidate 2 reads it many barriers later)
   for (int j = tid; j < v; j += nt)
-    S.lam_sum[j] = n_tail > 0 ? S.lam_sum[j] / (float)max(n_tail, 1)
-                              : S.lam[j];
-  __syncthreads();
+    lam_sum[j] = n_tail > 0 ? lam_sum[j] / (float)max(n_tail, 1) : lam[j];
 
+  // ---- three rounding candidates -----------------------------------
   float vals[3];
+  int rounds[6];
+  int g = 0;  // list build generation
+#pragma unroll
   for (int cnd = 0; cnd < 3; ++cnd) {
-    const float* prices = cnd == 1 ? S.lam : S.lam_sum;
+    const float* prices = cnd == 1 ? lam : lam_sum;
+    uint8_t* cur = pick + (size_t)cnd * c;
     // pass 0: greedy in reduced-cost order
-    for (int i = tid; i < c; i += nt) {
-      const float wv = wv_of(S, i);
-      // zero prices: wv - 0 == wv
-      const float red = cnd == 0 ? wv : wv - gather_sum(S, prices, i);
-      S.prio[i] = S.valid[i] ? red : -1.0f;
-      S.alive[i] = S.valid[i] && S.prio[i] > 0.0f;
-      S.cur[i] = 0;
+    for (int j = tid; j < v; j += nt) {
+      S.used[j] = 0;
+      S.best[j] = 0ull;
     }
-    __syncthreads();
-    greedy(S);
-    // pass 1: repair by raw weight over what stays feasible
-    for (int j = tid; j <= v; j += nt) S.used[j] = 0;
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      if (!S.cur[i]) continue;
-      const int* r = S.mv + (size_t)i * k;
-      for (int j = 0; j < k; ++j) S.used[r[j]] = 1;
+    int* out = begin_build(S, g);
+    for (int b = 0; b < nv; b += nt) {
+      const int idx = b + tid;
+      bool alive = false;
+      if (idx < nv) {
+        // zero prices: wv - 0 == wv
+        const float red =
+            cnd == 0 ? sw[idx] : sw[idx] - gather_sum<VT, K>(S, prices, idx);
+        S.prio[idx] = red;
+        cur[idx] = 0;
+        alive = red > 0.0f;
+      }
+      append(out, &list_cnt[g & 3], alive, idx);
     }
-    __syncthreads();
-    for (int i = tid; i < c; i += nt) {
-      const int* r = S.mv + (size_t)i * k;
-      bool hit = false;
-      for (int j = 0; j < k; ++j) hit = hit || S.used[r[j]];
-      S.prio[i] = S.w[i];
-      S.alive[i] = S.valid[i] && !S.cur[i] && !hit && S.w[i] > 0.0f;
+    bar(nbar);
+    int n = list_cnt[g & 3];
+    ++g;
+    rounds[2 * cnd] = greedy<VT, K>(S, cur, n, g, nbar);
+    // pass 1: repair by raw weight over what stays feasible; `used`
+    // marks exactly the members of pass 0's picks
+    out = begin_build(S, g);
+    for (int b = 0; b < nv; b += nt) {
+      const int idx = b + tid;
+      bool alive = false;
+      if (idx < nv && !cur[idx] && sw[idx] > 0.0f) {
+        const VT* r = smv + (size_t)idx * K;
+        bool hit = false;
+#pragma unroll
+        for (int j = 0; j < K; ++j) hit = hit || S.used[r[j]];
+        if (!hit) {
+          alive = true;
+          S.prio[idx] = sw[idx];
+#pragma unroll
+          for (int j = 0; j < K; ++j) S.best[r[j]] = 0ull;
+        }
+      }
+      append(out, &list_cnt[g & 3], alive, idx);
     }
-    __syncthreads();
-    greedy(S);
-    for (int i = tid; i < c; i += nt) cand[(size_t)cnd * c + i] = S.cur[i];
-    vals[cnd] = objective_sum(S, sums, &sum_out);
+    bar(nbar);
+    n = list_cnt[g & 3];
+    ++g;
+    rounds[2 * cnd + 1] = greedy<VT, K>(S, cur, n, g, nbar);
+    vals[cnd] = objective_sum(S, cur, nbar);
   }
-  int pick = 0;
-  if (vals[1] > vals[pick]) pick = 1;
-  if (vals[2] > vals[pick]) pick = 2;
-  uint8_t* out = picked_all + (size_t)m * c;
-  for (int i = tid; i < c; i += nt) out[i] = cand[(size_t)pick * c + i];
+  int pk = 0;
+  if (vals[1] > vals[pk]) pk = 1;
+  if (vals[2] > vals[pk]) pk = 2;
+  uint8_t* picked = picked_all + (size_t)m * c;
+  for (int i = tid; i < c; i += nt) picked[i] = 0;
+  bar(nbar);
+  const uint8_t* best_pick = pick + (size_t)pk * c;
+  for (int idx = tid; idx < nv; idx += nt)
+    if (best_pick[idx]) picked[spos[idx]] = 1;
+  if (tid == 0) {
+    int* st = stats + (size_t)m * kStats;
+    st[0] = t;
+#pragma unroll
+    for (int x = 0; x < 6; ++x) st[1 + x] = rounds[x];
+    st[7] = nbar;
+  }
+}
+
+template <typename VT, int K>
+int launch(const void* mv, const void* w, const void* valid, void* picked,
+           void* scratch, void* stats, int m, int c, int v, int num_iters,
+           int use_smem, float tol, cudaStream_t stream) {
+  if (use_smem) {
+    const size_t dyn = make_layout(c, K, v).total;
+    cudaError_t e = cudaFuncSetAttribute(
+        dual_solve_kernel<VT, K, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+    dual_solve_kernel<VT, K, true><<<m, kThreads, dyn, stream>>>(
+        (const int*)mv, (const float*)w, (const uint8_t*)valid,
+        (uint8_t*)picked, (uint8_t*)scratch, (int*)stats, c, v, num_iters,
+        tol);
+  } else {
+    dual_solve_kernel<VT, K, false><<<m, kThreads, 0, stream>>>(
+        (const int*)mv, (const float*)w, (const uint8_t*)valid,
+        (uint8_t*)picked, (uint8_t*)scratch, (int*)stats, c, v, num_iters,
+        tol);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename VT>
+int launch_k(const void* mv, const void* w, const void* valid,
+             void* picked, void* scratch, void* stats, int m, int c, int k,
+             int v, int num_iters, int use_smem, float tol,
+             cudaStream_t st) {
+  switch (k) {
+    case 1: return launch<VT, 1>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    case 2: return launch<VT, 2>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    case 3: return launch<VT, 3>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    case 4: return launch<VT, 4>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    case 5: return launch<VT, 5>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    case 6: return launch<VT, 6>(mv, w, valid, picked, scratch, stats, m, c, v, num_iters, use_smem, tol, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int repic_dual_smem_bytes(int c, int v) {
-  return (int)make_layout(c, v).total;
+extern "C" int repic_dual_smem_bytes(int c, int k, int v) {
+  return (int)make_layout(c, k, v).total;
 }
 
+// stats: (M, 8) int32 — ascent steps, greedy rounds of the six
+// fixpoints (candidate 0 pass 0, pass 1, candidate 1 ...), barriers.
 extern "C" int repic_dual_solve(const void* mv, const void* w,
                                 const void* valid, void* picked,
-                                void* scratch, int m, int c, int k, int v,
-                                int num_iters, int use_smem, float tol,
-                                void* stream) {
-  const size_t bytes = make_layout(c, v).total;
-  size_t dyn = use_smem ? bytes : 0;
-  if (use_smem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dual_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dual_solve_kernel<<<m, kThreads, dyn, (cudaStream_t)stream>>>(
-      (const int*)mv, (const float*)w, (const uint8_t*)valid,
-      (uint8_t*)picked, (uint8_t*)scratch, c, k, v, num_iters, use_smem,
-      tol);
-  return (int)cudaGetLastError();
+                                void* scratch, void* stats, int m, int c,
+                                int k, int v, int num_iters, int use_smem,
+                                float tol, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (id_bytes(v) == 2)
+    return launch_k<uint16_t>(mv, w, valid, picked, scratch, stats, m, c,
+                              k, v, num_iters, use_smem, tol, st);
+  return launch_k<int>(mv, w, valid, picked, scratch, stats, m, c, k, v,
+                       num_iters, use_smem, tol, st);
 }

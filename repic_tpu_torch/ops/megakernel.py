@@ -25,6 +25,8 @@ Outside it ``consensus_one`` demotes statically to the staged program
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repic_tpu_torch import _build
@@ -48,6 +50,10 @@ SOLVE_LANE = 128
 LAUNCHES = {"fused_clique_candidates": 0, "fused_dual_solve": 0}
 #: lp_device_fused chunks demoted to the staged program (envelope)
 DEMOTIONS = 0
+#: (M, 8) int32 chain counters of the last fused_dual_solve launch, per
+#: micrograph: ascent steps, greedy rounds of the six fixpoints
+#: (candidate 0 pass 0, pass 1, candidate 1 pass 0, ...), block barriers
+SOLVE_CHAIN = None
 
 # dynamic shared memory the solve may claim per block (the card's
 # 227 KB less the kernel's static reduction buffers)
@@ -159,14 +165,16 @@ def fused_clique_candidates(
     _check(mask, torch.bool, (m, k, n), dev, "mask")
     xy = _build.aligned(xy)
     conf, mask = conf.contiguous(), mask.contiguous()
-    sizes = _per_picker_sizes(box_size, k, torch.float32, dev)
-    nblk = -(-n // 128)
+    # the box edges travel as kernel arguments (no copy to the card)
+    sizes = (ctypes.c_float * k)(*_per_picker_sizes(
+        box_size, k, torch.float32, "cpu").tolist())
     i32, f32 = torch.int32, torch.float32
     nbr_v = torch.empty((m, k - 1, n, d), dtype=f32, device=dev)
     nbr_i = torch.empty((m, k - 1, n, d), dtype=i32, device=dev)
     anchor_count = torch.empty((m, n), dtype=i32, device=dev)
-    block_count = torch.empty((m, nblk), dtype=i32, device=dev)
-    block_adj = torch.empty((m, nblk), dtype=i32, device=dev)
+    # per anchor block (a block holds at least one anchor)
+    block_count = torch.empty((m, n), dtype=i32, device=dev)
+    block_adj = torch.empty((m, n), dtype=i32, device=dev)
     member_idx = torch.empty((m, cap, k), dtype=i32, device=dev)
     valid = torch.empty((m, cap), dtype=torch.bool, device=dev)
     w = torch.empty((m, cap), dtype=f32, device=dev)
@@ -179,14 +187,15 @@ def fused_clique_candidates(
     lib = _build.load("cliques")
     stream = _build.stream_ptr(dev)
     err = lib.repic_clique_count(
-        xy.data_ptr(), mask.data_ptr(), sizes.data_ptr(),
+        xy.data_ptr(), mask.data_ptr(), ctypes.addressof(sizes),
         nbr_v.data_ptr(), nbr_i.data_ptr(), anchor_count.data_ptr(),
         block_count.data_ptr(), block_adj.data_ptr(),
         m, k, n, d, float(threshold), stream,
     )
     _build.check(err, "fused_clique_candidates (count)")
     err = lib.repic_clique_write(
-        xy.data_ptr(), conf.data_ptr(), mask.data_ptr(), sizes.data_ptr(),
+        xy.data_ptr(), conf.data_ptr(), mask.data_ptr(),
+        ctypes.addressof(sizes),
         nbr_v.data_ptr(), nbr_i.data_ptr(), anchor_count.data_ptr(),
         block_count.data_ptr(), block_adj.data_ptr(),
         member_idx.data_ptr(), valid.data_ptr(), w.data_ptr(),
@@ -233,6 +242,7 @@ def fused_dual_solve(member_vertex, w, valid, num_vertices):
         return fused_dual_solve_plain(member_vertex, w, valid, num_vertices)
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
+    global SOLVE_CHAIN
     m, c, k = member_vertex.shape
     if k > _FUSED_MAX_K:
         raise ValueError(f"fused solve supports K <= {_FUSED_MAX_K}, got {k}")
@@ -243,19 +253,21 @@ def fused_dual_solve(member_vertex, w, valid, num_vertices):
     member_vertex = member_vertex.contiguous()
     w, valid = w.contiguous(), valid.contiguous()
     lib = _build.load("dual")
-    per_block = lib.repic_dual_smem_bytes(c, num_vertices)
+    per_block = lib.repic_dual_smem_bytes(c, k, num_vertices)
     use_smem = per_block <= _SOLVE_SMEM_LIMIT
     scratch = torch.empty(
         (1 if use_smem else m * per_block,), dtype=torch.uint8, device=dev
     )
     picked = torch.empty((m, c), dtype=torch.bool, device=dev)
+    chain = torch.empty((m, 8), dtype=torch.int32, device=dev)
     err = lib.repic_dual_solve(
         member_vertex.data_ptr(), w.data_ptr(), valid.data_ptr(),
-        picked.data_ptr(), scratch.data_ptr(),
+        picked.data_ptr(), scratch.data_ptr(), chain.data_ptr(),
         m, c, k, num_vertices, _dual.DEFAULT_NUM_ITERS, int(use_smem),
         float(_dual.DEFAULT_TOL), _build.stream_ptr(dev),
     )
     _build.check(err, "fused_dual_solve")
+    SOLVE_CHAIN = chain
     LAUNCHES["fused_dual_solve"] += 1
     return picked
 

@@ -56,9 +56,11 @@ def test_neighbors_kernel_matches_plain(cuda_device, na, mb_, d):
 @pytest.mark.parametrize(
     "k,n_p,d",
     [(k, n_p, PROBE_D) for k, n_p in CLIQUE_LADDER]
-    # d = 24: in-memory lists, inside the envelope (D^(K-1) <= 4096);
-    # then the envelope's upper picker counts
-    + [(3, 64, 24), (3, 96, 24), (2, 40, 24), (5, 16, 4), (6, 12, 4)],
+    # d = 1 and 16: the smallest and largest lane lists of the warp
+    # merge; d = 24: the per-warp list in memory, inside the envelope
+    # (D^(K-1) <= 4096); then the envelope's upper picker counts
+    + [(3, 64, 1), (3, 96, 16), (4, 24, 16), (3, 64, 24), (3, 96, 24),
+       (2, 40, 24), (5, 16, 4), (6, 12, 4)],
 )
 def test_candidates_kernel_matches_plain(cuda_device, k, n_p, d):
     xy, conf, mask = clique_inputs(k, n_p)
@@ -68,6 +70,20 @@ def test_candidates_kernel_matches_plain(cuda_device, k, n_p, d):
     got = tmk.fused_clique_candidates(*args, BOX, **kw)
     assert tmk.LAUNCHES["fused_clique_candidates"] == before + 1
     want = tmk.fused_clique_candidates_plain(*args, BOX, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+
+
+@pytest.mark.cuda
+def test_candidates_kernel_all_masked_matches_plain(cuda_device):
+    """No real particle in the micrograph: no clique, zero probes."""
+    xy, conf, mask = clique_inputs(3, 64)
+    args = [t(a, cuda_device)[None]
+            for a in (xy, conf, np.zeros_like(mask))]
+    kw = dict(threshold=0.3, max_neighbors=8, clique_capacity=PROBE_CAP)
+    got = tmk.fused_clique_candidates(*args, BOX, **kw)
+    want = tmk.fused_clique_candidates_plain(*args, BOX, **kw)
+    assert int(n(want[7])[0]) == 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), n(w))
 
@@ -87,6 +103,20 @@ def test_dual_solve_kernel_matches_plain(cuda_device, c, k, v):
     assert tmk.LAUNCHES["fused_dual_solve"] == before + 1
     want = tmk.fused_dual_solve_plain(mv, w, valid, v)
     np.testing.assert_array_equal(n(got), n(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [False, True])
+def test_dual_solve_kernel_validity_edges_match_plain(cuda_device, fill):
+    """No valid clique (empty worklists from the start) and every
+    clique valid."""
+    mv, w, valid = solve_inputs(100, 4)
+    valid = np.full_like(valid, fill)
+    args = [t(a, cuda_device)[None] for a in (mv, w, valid)]
+    got = tmk.fused_dual_solve(*args, SOLVE_V)
+    want = tmk.fused_dual_solve_plain(*args, SOLVE_V)
+    np.testing.assert_array_equal(n(got), n(want))
+    assert n(got).any() == fill
 
 
 @pytest.mark.cuda
