@@ -12,9 +12,13 @@ Phases, each fatal on failure:
    (one ``nvcc`` per source, all at once), print ptxas's register and
    spill lines, and fail if any kernel spills;
 2. hold each kernel against its plain PyTorch version on the card —
-   on the reference kernels' contract ladders (kernel 2 at d = 1, 4,
-   8, 16 and 24, and on an all-masked micrograph; kernel 3 also with
-   no valid clique and with every clique valid) and at the main path's
+   on the reference kernels' contract ladders (kernel 1 at d = 1, 4,
+   8, 16, 24, 32 and 48, also with N not a multiple of its anchors per
+   block, M past one staged tile, every anchor or every candidate
+   masked, negative thresholds and per-item box sizes; kernel 2 at
+   d = 1, 4, 8, 16 and 24, and on an all-masked micrograph; kernel 3
+   also with no valid clique and with every clique valid) and at the
+   main path's
    chunk shape (32 micrographs of the synthetic set): integer and
    boolean outputs equal, floats equal (tolerance 0); print kernel 3's
    chain at the chunk (ascent steps, greedy rounds, block barriers);
@@ -34,7 +38,10 @@ Phases, each fatal on failure:
    times, bound, max abs error), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
-Times are CUDA-event means over repeated calls after a warm-up.
+Times are CUDA-event means over repeated calls after a warm-up: what a
+caller of the wrapper waits, host work between launches included.
+Phase 2 also prints each kernel's own device time per call, summed
+from ``torch.profiler``'s kernel records.
 Everything long goes to ``chiprun_out/chip_smoke/``.
 """
 
@@ -122,6 +129,27 @@ def device_busy(fn):
     return wall, (busy / 1e6 if spans else None), top
 
 
+def device_ms(fn, reps: int, kernel: str):
+    """Device time per call of ``fn`` spent in the kernels whose name
+    contains ``kernel``, from ``torch.profiler`` over ``reps`` calls
+    after a warm-up: the kernels alone, without the host's work between
+    launches.  None when the profiler saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name)
+    return us / 1e3 / reps if us else None
+
+
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_INSTR
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
@@ -152,17 +180,55 @@ def compare(name, got, want):
 
 
 def ladder_k1():
+    """Kernel 1's cases: ``(label, (xy_a, mask_a, xy_b, mask_b, size_a,
+    size_b), threshold)``."""
     import numpy as np
     import torch
 
-    for n, m in ((64, 128), (96, 256), (40, 70)):
-        rng = np.random.default_rng(n + m)
+    def inputs(n, m, seed):
+        rng = np.random.default_rng(seed)
         xa = rng.uniform(0, 2000.0, (n, 2)).astype(np.float32)
         xb = rng.uniform(0, 2000.0, (m, 2)).astype(np.float32)
         ma = rng.uniform(size=n) > 0.15
         mb = rng.uniform(size=m) > 0.15
-        yield f"N{n} M{m}", [torch.from_numpy(a).cuda()
-                             for a in (xa, ma, xb, mb)]
+        return xa, ma, xb, mb
+
+    def card(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    # the reference ladder; N not a multiple of the 8 anchors per
+    # block; M past one staged tile of 1,024
+    for n, m in ((64, 128), (96, 256), (40, 70), (61, 300), (37, 2100)):
+        yield f"N{n} M{m}", (*card(*inputs(n, m, n + m)), BOX, BOX), 0.3
+    xa, ma, xb, mb = inputs(96, 256, 352)
+    # ~100 positive IoUs per anchor: kernel 1's buffer keeps its top d
+    # mid-scan
+    dense = inputs(64, 300, 23)
+    dense[2][:20] = dense[2][20:40]
+    yield "dense N64 M300", (*card(dense[0] * 0.3, dense[1],
+                                   dense[2] * 0.3, dense[3]), BOX, BOX), 0.3
+    none_a, none_b = np.zeros_like(ma), np.zeros_like(mb)
+    yield "all anchors masked", (*card(xa, none_a, xb, mb), BOX, BOX), 0.3
+    yield "all candidates masked", (*card(xa, ma, xb, none_b), BOX,
+                                    BOX), 0.3
+    # zero IoUs count below 0, masked pairs' -1 below -1
+    for thr in (-0.5, -2.0):
+        yield f"threshold {thr}", (*card(xa, ma, xb, mb), BOX, BOX), thr
+    # enumerate_cliques' batch at K = 4 (3 micrographs): picker 0's
+    # box 180 against boxes 150, 200, 180 (host tensors, per item)
+    rng = np.random.default_rng(17)
+    mk, k, n = 3, 4, 200
+    xy = (rng.uniform(0, 1500.0, (mk, 1, n, 2))
+          + rng.normal(0, 30.0, (mk, k, n, 2))).astype(np.float32)
+    mask = rng.uniform(size=(mk, k, n)) > 0.15
+    xy, mask = card(xy, mask)
+    b = mk * (k - 1)
+    sizes = torch.tensor([180.0, 150.0, 200.0, 180.0])
+    yield "K4 per-picker sizes", (
+        xy[:, :1].expand(mk, k - 1, n, 2).reshape(b, n, 2),
+        mask[:, :1].expand(mk, k - 1, n).reshape(b, n),
+        xy[:, 1:].reshape(b, n, 2), mask[:, 1:].reshape(b, n),
+        sizes[0].expand(b), sizes[1:].repeat(mk)), 0.3
 
 
 def ladder_k2():
@@ -263,14 +329,13 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions ---------------
     errs = {"topk_neighbors": 0.0, "fused_clique_candidates": 0.0,
             "fused_dual_solve": 0.0}
-    # d = 8 and 4 are the reference ladders' (register top-D lists);
-    # d = 24 takes the kernels' in-memory lists for d > 16
-    for label, (xa, ma, xb, mb) in ladder_k1():
-        args = (xa, ma, xb, mb, BOX, BOX)
-        for d in (8, 24):
-            got = iou_pallas.topk_neighbors(*args, d=d, threshold=0.3)
+    # d = 1 to 32: kernel 1's buffered positives and zeros apart; 48:
+    # its per-warp list in the output row
+    for label, args, thr in ladder_k1():
+        for d in (1, 4, 8, 16, 24, 32, 48):
+            got = iou_pallas.topk_neighbors(*args, d=d, threshold=thr)
             want = iou_pallas.topk_neighbors_plain(*args, d=d,
-                                                   threshold=0.3)
+                                                   threshold=thr)
             torch.cuda.synchronize()
             errs["topk_neighbors"] = max(
                 errs["topk_neighbors"],
@@ -320,15 +385,20 @@ def main() -> int:
         f"D={d} C={cap}")
     times = {}
 
-    # kernel 1 at the chunk shape (every anchor-pair of the chunk)
+    # kernel 1 at the chunk shape (every anchor-pair of the chunk), with
+    # the sizes as the main path hands them over for one box size: a
+    # Python number each (enumerate_cliques passes it through)
     b = m * (k - 1)
     a1 = (
         db.xy[:, :1].expand(m, k - 1, n, 2).reshape(b, n, 2).contiguous(),
         db.mask[:, :1].expand(m, k - 1, n).reshape(b, n).contiguous(),
         db.xy[:, 1:].reshape(b, n, 2).contiguous(),
         db.mask[:, 1:].reshape(b, n).contiguous(),
-        BOX, BOX,
+        float(BOX), float(BOX),
     )
+    # the unmasked pairs: the only ones whose IoU the outputs need (a
+    # masked pair is the constant -1)
+    pairs = float((a1[1].sum(1).double() * a1[3].sum(1).double()).sum())
     got = iou_pallas.topk_neighbors(*a1, d=d)
     want = iou_pallas.topk_neighbors_plain(*a1, d=d)
     errs["topk_neighbors"] = max(errs["topk_neighbors"],
@@ -339,9 +409,9 @@ def main() -> int:
     times["topk_neighbors"] = (
         cuda_ms(lambda: iou_pallas.topk_neighbors(*a1, d=d), 20),
         cuda_ms(lambda: iou_pallas.topk_neighbors_plain(*a1, d=d), 5),
-        # per pair: 2 x (min, max, sub, clamp), mul, sub, div, mask,
-        # compare, count
-        bound(b * n * (9 + 9) + b * n * (8 * d + 4), b * n * n * 14.0),
+        # per unmasked pair: 2 x (min, max, sub, clamp), mul, sub, div,
+        # mask, compare, count
+        bound(b * n * (9 + 9) + b * n * (8 * d + 4), pairs * 14.0),
     )
 
     # kernel 2 at the chunk shape
@@ -360,7 +430,7 @@ def main() -> int:
     # per other picker: gather k - 1 members, the IoU of each edge
     # between them, a compare per edge
     walk = float(above.prod(1).sum())
-    ops2 = (m * (k - 1) * n * n * 14.0            # neighbour IoU scan
+    ops2 = (pairs * 14.0                          # neighbour IoU scan
             + walk * ((k - 1) + 14.0 * (e - k + 1) + e)
             + n_valid * (k * k + e * e + 3 * e))   # medians, degrees
     # inputs xy, conf, mask; outputs member_idx, valid, w, confidence,
@@ -417,9 +487,24 @@ def main() -> int:
     )
     log(f"phase 2: chunk-shape kernels equal their plain versions "
         f"(dual iterations {stats.iterations.tolist()[:4]}...)")
+    # the kernels' own device time per call (CUDA-event times above
+    # include the host's work between launches when it is the longer)
+    dev_ms = {
+        "topk_neighbors": device_ms(
+            lambda: iou_pallas.topk_neighbors(*a1, d=d), 20,
+            "topk_neighbors_kernel"),
+        "fused_clique_candidates": device_ms(
+            lambda: megakernel.fused_clique_candidates(
+                db.xy, db.conf, db.mask, BOX, **kw), 10, "clique_"),
+        "fused_dual_solve": device_ms(
+            lambda: megakernel.fused_dual_solve(vid, cs.w, cs.valid, nv),
+            10, "dual_solve_kernel"),
+    }
     for name, (ms, plain_ms, (b_ms, by)) in times.items():
+        dm = dev_ms[name]
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({by})")
+            f"bound {b_ms:.5f} ms ({by}); device time per call "
+            + ("not measured" if dm is None else f"{dm:.4f} ms"))
 
     # -- phase 3: examples/10017 through the CLI vs the JAX goldens ---
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -555,7 +640,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
-    report = {"card": card, "kernels": kernels, "cli_10017": cli_runs,
+    report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
+              "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -3,10 +3,10 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with :mod:`ctypes` — no PyTorch headers, so
 a build takes seconds.  Libraries land in ``build/repic_tpu_torch/``
-at the repository root, named by a hash of the source and the flags,
-so a changed source rebuilds and an unchanged one loads at once.
-:func:`build_all` starts one ``nvcc`` per source, all at the same
-time.
+at the repository root, named by a hash of the source, the shared
+headers and the flags, so a changed source or header rebuilds and an
+unchanged one loads at once.  :func:`build_all` starts one ``nvcc``
+per source, all at the same time.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` — no
 implicit fused multiply-add, so every float expression rounds the way
@@ -37,7 +37,9 @@ NVCC_FLAGS = (
 #: source basename -> C functions it exports: name -> argtypes
 KERNELS = {
     "neighbors": {
-        "repic_topk_neighbors": ["p"] * 9 + ["i"] * 4 + ["f", "p"],
+        "repic_topk_neighbors": (
+            ["p"] * 5 + ["f", "p", "f"] + ["p"] * 3 + ["i"] * 4 + ["f", "p"]
+        ),
     },
     "cliques": {
         "repic_clique_count": ["p"] * 8 + ["i"] * 4 + ["f", "p"],
@@ -70,12 +72,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

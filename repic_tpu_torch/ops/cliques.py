@@ -23,6 +23,7 @@ chunked or staged assembly raise ``NotImplementedError``.
 from __future__ import annotations
 
 import itertools
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -162,13 +163,18 @@ def enumerate_cliques(
 
         m = xy.shape[0]
         b = m * (k - 1)
+        # a Python number travels as a kernel argument; per-picker
+        # sizes as the per-item views of `sizes`, on xy's device
+        if isinstance(box_size, numbers.Real):
+            sa = sb = box_size
+        else:
+            sa, sb = sizes[0].expand(b), sizes[1:].repeat(m)
         v, i, adj = topk_neighbors(
             xy[:, :1].expand(m, k - 1, n, 2).reshape(b, n, 2),
             mask[:, :1].expand(m, k - 1, n).reshape(b, n),
             xy[:, 1:].reshape(b, n, 2),
             mask[:, 1:].reshape(b, n),
-            sizes[0].expand(b),
-            sizes[1:].repeat(m),
+            sa, sb,
             d=d, threshold=threshold,
         )
         v = v.reshape(m, k - 1, n, d)

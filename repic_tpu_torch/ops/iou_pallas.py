@@ -15,6 +15,9 @@ launch) covers every (micrograph, picker pair) of a chunk.
 
 from __future__ import annotations
 
+import math
+import numbers
+
 import torch
 
 from repic_tpu_torch import _build
@@ -29,19 +32,12 @@ MAX_D = 1024
 LAUNCHES = 0
 
 
-def _batched(xy_a, mask_a, xy_b, mask_b, size_a, size_b):
+def _batched(xy_a, mask_a, xy_b, mask_b):
     single = xy_a.dim() == 2
     if single:
         xy_a, mask_a = xy_a[None], mask_a[None]
         xy_b, mask_b = xy_b[None], mask_b[None]
-    b = xy_a.shape[0]
-    dev = xy_a.device
-
-    def sizes(s):
-        s = torch.as_tensor(s, dtype=xy_a.dtype, device=dev)
-        return s.reshape(-1).expand(b)
-
-    return single, xy_a, mask_a, xy_b, mask_b, sizes(size_a), sizes(size_b)
+    return single, xy_a, mask_a, xy_b, mask_b
 
 
 def _empty(b, n, m, d, like):
@@ -62,13 +58,16 @@ def topk_neighbors_plain(
     *, d: int = 16, threshold: float = 0.3,
 ):
     """Plain PyTorch version of :func:`topk_neighbors`."""
-    single, xy_a, mask_a, xy_b, mask_b, sa, sb = _batched(
-        xy_a, mask_a, xy_b, mask_b, size_a, size_b
-    )
+    single, xy_a, mask_a, xy_b, mask_b = _batched(xy_a, mask_a, xy_b, mask_b)
     b, n, m = xy_a.shape[0], xy_a.shape[1], xy_b.shape[1]
     if n == 0 or m == 0:
         return _unbatch(single, _empty(b, n, m, d, xy_a))
-    iou = pair_iou(xy_a, xy_b, sa, sb)
+
+    def sizes(s):
+        s = torch.as_tensor(s, dtype=xy_a.dtype, device=xy_a.device)
+        return s.reshape(-1).expand(b)
+
+    iou = pair_iou(xy_a, xy_b, sizes(size_a), sizes(size_b))
     valid = mask_a[:, :, None] & mask_b[:, None, :]
     iou = torch.where(valid, iou, torch.full((), NEG, dtype=iou.dtype,
                                              device=iou.device))
@@ -84,6 +83,22 @@ def topk_neighbors_plain(
     return _unbatch(single, (vals, order, cnt))
 
 
+def _size_arg(s, b: int, dev):
+    """One side's box edges for the kernel: ``(value, pointer, keep)``.
+
+    A Python number travels as a kernel argument (null pointer), with
+    no tensor work on the host.  Anything else is read on the card from
+    ``b`` floats (copied there first when it is not already); ``keep``
+    holds them."""
+    if isinstance(s, numbers.Real):
+        if not (math.isfinite(s) and s > 0):
+            raise ValueError("box sizes must be positive and finite")
+        return float(s), None, None
+    keep = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    keep = keep.reshape(-1).expand(b).contiguous()
+    return 0.0, keep.data_ptr(), keep
+
+
 def topk_neighbors(
     xy_a, mask_a, xy_b, mask_b, size_a, size_b,
     *, d: int = 16, threshold: float = 0.3,
@@ -93,7 +108,9 @@ def topk_neighbors(
     Args:
         xy_a/mask_a: ``([B,] N, 2)`` float32 / ``([B,] N)`` bool.
         xy_b/mask_b: ``([B,] M, 2)`` / ``([B,] M)``.
-        size_a/size_b: box edges — scalars or ``(B,)``.
+        size_a/size_b: box edges — Python numbers (positive and
+            finite; kernel arguments, no copy to the card) or tensors
+            of one or ``B`` values (best on the card).
 
     Returns:
         ``(iou, idx, count)``: ``([B,] N, d)`` float32 (``-1`` empty),
@@ -109,32 +126,34 @@ def topk_neighbors(
         )
     if xy_a.device.type != "cuda":
         raise ValueError(f"unsupported device {xy_a.device}")
-    single, xy_a, mask_a, xy_b, mask_b, sa, sb = _batched(
-        xy_a, mask_a, xy_b, mask_b, size_a, size_b
-    )
+    single, xy_a, mask_a, xy_b, mask_b = _batched(xy_a, mask_a, xy_b, mask_b)
     b, n, m = xy_a.shape[0], xy_a.shape[1], xy_b.shape[1]
     for t, want in ((xy_a, (b, n, 2)), (xy_b, (b, m, 2))):
         if t.dtype != torch.float32 or tuple(t.shape) != want:
             raise ValueError(
                 f"expected float32 {want}, got {t.dtype} {tuple(t.shape)}"
             )
-    for t in (mask_a, mask_b, xy_b, sa, sb):
-        if t.device != xy_a.device:
+    for t, want in ((mask_a, (b, n)), (mask_b, (b, m))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"expected mask {want}, got {tuple(t.shape)}")
+    dev = xy_a.device
+    for t in (mask_a, mask_b, xy_b):
+        if t.device != dev:
             raise ValueError("all inputs must be on one device")
     if n == 0 or m == 0 or b == 0:
         return _unbatch(single, _empty(b, n, m, d, xy_a))
+    sa, sa_ptr, _sa = _size_arg(size_a, b, dev)
+    sb, sb_ptr, _sb = _size_arg(size_b, b, dev)
     xy_a, xy_b = _build.aligned(xy_a), _build.aligned(xy_b)
     mask_a = mask_a.to(torch.bool).contiguous()
     mask_b = mask_b.to(torch.bool).contiguous()
-    sa, sb = sa.contiguous(), sb.contiguous()
-    dev = xy_a.device
     out_v = torch.empty((b, n, d), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, n, d), dtype=torch.int32, device=dev)
     out_c = torch.empty((b, n), dtype=torch.int32, device=dev)
     lib = _build.load("neighbors")
     err = lib.repic_topk_neighbors(
         xy_a.data_ptr(), mask_a.data_ptr(), xy_b.data_ptr(),
-        mask_b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        mask_b.data_ptr(), sa_ptr, sa, sb_ptr, sb,
         out_v.data_ptr(), out_i.data_ptr(), out_c.data_ptr(),
         b, n, m, d, float(threshold), _build.stream_ptr(dev),
     )

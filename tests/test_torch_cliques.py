@@ -97,6 +97,25 @@ def test_compact_cliques_matches_reference(k):
         )
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_per_picker_sizes_match_reference(use_pallas):
+    """K = 4 with box sizes 180/150/200/180: kernel 1 takes the anchor
+    size and the other pickers' sizes per item (the pickers 1 to K-1
+    repeated over the micrographs)."""
+    xy, conf, mask = clique_inputs(4, 24, seed=44)
+    sizes = np.array([180.0, 150.0, 200.0, 180.0], np.float32)
+    want = jax.jit(
+        jc.enumerate_cliques,
+        static_argnames=("max_neighbors", "use_pallas"),
+    )(xy, conf, mask, sizes, max_neighbors=4, use_pallas=use_pallas)
+    items = [(xy, conf, mask), clique_inputs(4, 24, seed=45)]
+    stack = [t(np.stack([it[j] for it in items])) for j in range(3)]
+    got = tc.enumerate_cliques(*stack, sizes, max_neighbors=4,
+                               use_pallas=use_pallas)
+    assert int(want.num_valid) > 0
+    _assert_same(got, want)
+
+
 def test_batched_enumeration_is_per_micrograph():
     items = [clique_inputs(3, 32, seed=s) for s in range(3)]
     stack = [t(np.stack([it[j] for it in items])) for j in range(3)]

@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from repic_tpu_torch.ops import iou_pallas as tk
 from repic_tpu_torch.ops import megakernel as tmk
@@ -37,9 +38,10 @@ SOLVE_LADDER = [(16, 3), (100, 4), (128, 2)]
 PROBE_D, PROBE_CAP, SOLVE_V = 4, 1024, 64
 
 
-# d <= 16 keeps the top-D list in registers, longer lists in memory
+# d = 1 to 32: positive IoUs buffered and ranked, the first zeros kept
+# apart; 48: the per-warp list in the output row
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 24])
+@pytest.mark.parametrize("d", [1, 4, 8, 16, 24, 32, 48])
 @pytest.mark.parametrize("na,mb_", NEIGHBOR_LADDER)
 def test_neighbors_kernel_matches_plain(cuda_device, na, mb_, d):
     xa, ma, xb, mb = neighbor_inputs(na, mb_)
@@ -50,6 +52,124 @@ def test_neighbors_kernel_matches_plain(cuda_device, na, mb_, d):
     want = tk.topk_neighbors_plain(*args, BOX, BOX, d=d)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(n(g), n(w))
+
+
+def _neighbors_equal(args, sa, sb, d, threshold=0.3):
+    got = tk.topk_neighbors(*args, sa, sb, d=d, threshold=threshold)
+    want = tk.topk_neighbors_plain(*args, sa, sb, d=d, threshold=threshold)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), n(w))
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24])
+@pytest.mark.parametrize("masked", ["anchors", "candidates"])
+def test_neighbors_kernel_all_masked_matches_plain(cuda_device, masked, d):
+    """Every anchor masked (blocks skip the staging) or every candidate
+    masked (empty compacted tiles): empty rows, zero counts."""
+    xa, ma, xb, mb = neighbor_inputs(96, 256)
+    if masked == "anchors":
+        ma = np.zeros_like(ma)
+    else:
+        mb = np.zeros_like(mb)
+    args = [t(a, cuda_device) for a in (xa, ma, xb, mb)]
+    want = _neighbors_equal(args, BOX, BOX, d)
+    assert (n(want[0]) == -1).all() and (n(want[2]) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [-0.5, -2.0])
+def test_neighbors_kernel_negative_thresholds_match_plain(cuda_device,
+                                                          threshold):
+    """Zero IoUs count below 0; masked pairs' -1 counts below -1."""
+    xa, ma, xb, mb = neighbor_inputs(40, 70)
+    args = [t(a, cuda_device) for a in (xa, ma, xb, mb)]
+    for d in (8, 24):
+        _neighbors_equal(args, BOX, BOX, d, threshold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["host", "card", "host per item"])
+def test_neighbors_kernel_per_item_sizes_match_plain(cuda_device, how):
+    """enumerate_cliques' batch at K = 4: anchors of picker 0 (box 180)
+    against pickers 1-3 (boxes 150, 200, 180), three micrographs; the
+    sizes on the host (copied by the wrapper), on the card, or different
+    for every item."""
+    m, k, n_p = 3, 4, 200
+    rng = np.random.default_rng(17)
+    base = rng.uniform(0, 1500.0, (m, 1, n_p, 2))
+    xy = (base + rng.normal(0, 30.0, (m, k, n_p, 2))).astype(np.float32)
+    mask = rng.uniform(size=(m, k, n_p)) > 0.15
+    b = m * (k - 1)
+    xyt, mt = t(xy, cuda_device), t(mask, cuda_device)
+    args = (
+        xyt[:, :1].expand(m, k - 1, n_p, 2).reshape(b, n_p, 2),
+        mt[:, :1].expand(m, k - 1, n_p).reshape(b, n_p),
+        xyt[:, 1:].reshape(b, n_p, 2),
+        mt[:, 1:].reshape(b, n_p),
+    )
+    sizes = torch.tensor([180.0, 150.0, 200.0, 180.0])
+    sa, sb = sizes[0].expand(b), sizes[1:].repeat(m)
+    if how == "card":
+        sa, sb = sa.to(cuda_device), sb.to(cuda_device)
+    elif how == "host per item":
+        sb = sb + torch.arange(b, dtype=torch.float32)
+    for d in (4, 16, 24):
+        _neighbors_equal(args, sa, sb, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,mb_", [(61, 300), (37, 2100), (200, 1024)])
+def test_neighbors_kernel_ragged_and_tiled_match_plain(cuda_device, na,
+                                                       mb_):
+    """N not a multiple of the anchors per block; M past one staged tile
+    (1,024 candidates) and exactly one tile."""
+    xa, ma, xb, mb = neighbor_inputs(na, mb_)
+    args = [t(a, cuda_device) for a in (xa, ma, xb, mb)]
+    for d in (8, 16, 48):
+        _neighbors_equal(args, BOX, BOX, d)
+
+
+@pytest.mark.cuda
+def test_neighbors_kernel_dense_field_matches_plain(cuda_device):
+    """About 100 positive IoUs per anchor: the per-warp buffer keeps
+    its top d mid-scan, many times over."""
+    rng = np.random.default_rng(23)
+    xa = rng.uniform(0, 600.0, (64, 2)).astype(np.float32)
+    xb = rng.uniform(0, 600.0, (300, 2)).astype(np.float32)
+    xb[:20] = xb[20:40]                      # equal IoUs, other indices
+    ma = rng.uniform(size=64) > 0.1
+    mb = rng.uniform(size=300) > 0.1
+    args = [t(a, cuda_device) for a in (xa, ma, xb, mb)]
+    for d in (1, 8, 32, 48):
+        _neighbors_equal(args, BOX, BOX, d)
+
+
+@pytest.mark.cuda
+def test_neighbors_kernel_makes_no_host_copy(cuda_device):
+    """Scalar box sizes travel as kernel arguments: a profiled call
+    shows the kernel on the card and no host-to-device copy (which the
+    same check does see where there is one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xa, ma, xb, mb = neighbor_inputs(64, 128)
+    args = [t(a, cuda_device) for a in (xa, ma, xb, mb)]
+    tk.topk_neighbors(*args, BOX, BOX, d=8)      # build and load
+    torch.cuda.synchronize()
+
+    def names(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()]
+
+    seen = names(lambda: tk.topk_neighbors(*args, BOX, BOX, d=8))
+    assert any("topk_neighbors_kernel" in x for x in seen), seen
+    assert not [x for x in seen if "HtoD" in x], seen
+    control = names(lambda: torch.as_tensor(BOX, device=cuda_device))
+    assert [x for x in control if "HtoD" in x], control
 
 
 @pytest.mark.cuda

@@ -10,6 +10,7 @@ CUDA kernel to the plain version on the card.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repic_tpu.ops.iou_pallas import pallas_topk_neighbors
 from repic_tpu_torch.ops import iou_pallas as tk
@@ -26,7 +27,9 @@ def _jax(xa, ma, xb, mb, sa, sb, d):
 
 
 @pytest.mark.parametrize("na,mb_", LADDER)
-@pytest.mark.parametrize("d", [8, 16])
+# d = 1 to 32: the kernel's buffered and ranked lists; 48: its per-warp
+# list in the output row
+@pytest.mark.parametrize("d", [1, 8, 16, 32, 48])
 def test_plain_matches_pallas_interpret(na, mb_, d):
     xa, ma, xb, mb = neighbor_inputs(na, mb_)
     want = _jax(xa, ma, xb, mb, 180.0, 180.0, d)
@@ -79,3 +82,21 @@ def test_empty_sets_and_d_past_m():
     with pytest.raises(ValueError):
         tk.topk_neighbors(t(xa), t(ma), t(xb), t(mb), 180.0, 180.0,
                           d=tk.MAX_D + 1)
+
+
+def test_host_sizes_travel_as_kernel_arguments():
+    """Python numbers become kernel arguments (value, null pointer) with
+    no tensor and no device touched; invalid ones raise."""
+    dev = torch.device("cuda")
+    for sizes in (180, 180.0, np.float32(180.0), np.float64(180.0)):
+        assert tk._size_arg(sizes, 64, dev) == (180.0, None, None)
+    for bad in (0.0, -5.0, float("nan"), float("inf")):
+        with pytest.raises(ValueError):
+            tk._size_arg(bad, 3, dev)
+    # a tensor is handed over as B floats on the inputs' device
+    cpu = torch.device("cpu")
+    for sizes, want in ((torch.tensor(180.0), [180.0] * 3),
+                        (torch.tensor([150.0, 200.0, 180.0]),
+                         [150.0, 200.0, 180.0])):
+        value, ptr, keep = tk._size_arg(sizes, 3, cpu)
+        assert ptr == keep.data_ptr() and keep.tolist() == want

@@ -1,4 +1,4 @@
-"""The warp merge rule of the clique kernel's top-D, modelled in numpy.
+"""The warp top-D rules of the port's kernels, modelled in numpy.
 
 ``csrc/cliques.cu`` builds each anchor's top-d list with one warp:
 lane l offers candidates l, l + 32, l + 64, ... in increasing index
@@ -6,13 +6,24 @@ order to its own list of d slots (insertion only on a strictly greater
 value, the walk of ``topd.cuh: lanelist_insert``), then the warp takes
 d rounds of an arg-max over the 32 list heads on the key (value desc,
 index asc), computed by a butterfly of five xor exchanges, and pops
-the winner's head (``topd.cuh: warp_merge_topd``).  The model below
-does exactly that, on every anchor at once, and must give the lists of
-``lax.top_k`` and of the Pallas neighbour kernel: values and indices
-exact, on inputs full of ties (zero IoUs, duplicated boxes, masked
-rows) with candidate counts that are not multiples of 32.  It pins the
-rule before the kernel runs on a card; ``tests/test_torch_cuda.py``
-and ``chip_smoke.py`` hold the kernel itself to the plain version.
+the winner's head (``topd.cuh: warp_merge_topd``).
+
+``csrc/neighbors.cu`` (kernel 1) stages each tile of candidates
+compacted to the unmasked ones and scans them 32 at a time.  For
+d <= 32 it appends the positive IoUs above its current d-th value to a
+buffer of 64 that keeps its top d whenever it holds more than 32,
+keeps the first d zero-IoU candidates in index order apart, and at the
+end places each buffered entry by its rank on (value desc, index asc),
+the zeros after the positives.  Longer lists are one sorted list per
+warp, filled in index order.
+
+The models below do exactly that, on every anchor at once, and must
+give the lists of ``lax.top_k`` and of the Pallas neighbour kernel:
+values and indices exact, on inputs full of ties (zero IoUs, duplicated
+boxes, masked rows) with candidate counts that are not multiples of 32.
+They pin the rules before the kernels run on a card;
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernels
+themselves to the plain versions.
 """
 
 import jax
@@ -30,6 +41,10 @@ from torch_port_common import n, t
 LANES = 32
 PAD_ID = np.iinfo(np.int32).max
 BOX = 180.0
+#: candidates staged per tile and buffered positives per warp in
+#: csrc/neighbors.cu (kTile, kBuf)
+KERNEL_TILE = 1024
+KBUF = 64
 
 
 def _before(va, ia, vb, ib):
@@ -149,3 +164,107 @@ def test_lane_merge_equals_clique_lists(case, d):
     want_v, want_i = jax.lax.top_k(jnp.asarray(iou), d)
     np.testing.assert_array_equal(got_v, n(want_v))
     np.testing.assert_array_equal(got_i, n(want_i))
+
+
+def buffer_rank_topd(iou: np.ndarray, mask_b: np.ndarray, d: int,
+                     tile: int):
+    """Top-d of each row of ``iou`` (N, M; masked pairs -1) by kernel
+    1's rule for d <= 32: unmasked candidates compacted per tile, in
+    batches of 32; positives above the d-th buffered value appended to
+    a buffer that keeps its top d once it holds more than 32; the first
+    d zeros apart; ranks on (value desc, index asc) place the
+    positives, the zeros follow."""
+    rows, cols = iou.shape
+    out_v = np.full((rows, d), -1.0, np.float32)
+    out_i = np.full((rows, d), cols, np.int64)
+
+    def top(vals, ids):
+        # rank = entries ahead on the key; ranks below d, in rank order
+        rank = [sum(_before(vals[j], ids[j], vals[e], ids[e])
+                    for j in range(len(vals))) for e in range(len(vals))]
+        order = sorted(range(len(vals)), key=rank.__getitem__)[:d]
+        return [vals[e] for e in order], [ids[e] for e in order]
+
+    for row in range(rows):
+        bv, bi, vmin = [], [], np.float32(0.0)
+        for t0 in range(0, cols, tile):
+            ids = t0 + np.flatnonzero(mask_b[t0:t0 + tile])
+            for jb in range(0, ids.size, LANES):
+                for j in ids[jb:jb + LANES]:
+                    if iou[row, j] > vmin:
+                        bv.append(iou[row, j])
+                        bi.append(j)
+                if len(bv) > KBUF - LANES:
+                    bv, bi = top(bv, bi)
+                    if d > 0:
+                        vmin = bv[d - 1]
+        bv, bi = top(bv, bi)
+        zeros = np.flatnonzero(mask_b & (iou[row] == 0.0))[:d - len(bv)]
+        out_v[row, :len(bv)], out_i[row, :len(bv)] = bv, bi
+        out_v[row, len(bv):len(bv) + zeros.size] = 0.0
+        out_i[row, len(bv):len(bv) + zeros.size] = zeros
+    return out_v, out_i
+
+
+def warp_list_topd(iou: np.ndarray, mask_b: np.ndarray, d: int):
+    """Kernel 1's rule for d > 32: one sorted list per anchor, candidates
+    offered in index order, inserted above the d-th value after every
+    listed value >= theirs."""
+    rows, cols = iou.shape
+    out_v = np.full((rows, d), -1.0, np.float32)
+    out_i = np.full((rows, d), cols, np.int64)
+    for row in range(rows):
+        v, ix = out_v[row], out_i[row]
+        fill = 0
+        for j in np.flatnonzero(mask_b):
+            val = iou[row, j]
+            vmin = v[d - 1] if fill == d else -1.0
+            if not val > vmin:
+                continue
+            p = int((v[:fill] >= val).sum())
+            last = min(fill, d - 1)
+            v[p + 1:last + 1] = v[p:last].copy()
+            ix[p + 1:last + 1] = ix[p:last].copy()
+            v[p], ix[p] = val, j
+            fill = min(fill + 1, d)
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("tile", [KERNEL_TILE, 64])
+@pytest.mark.parametrize("d", [1, 5, 8, 16, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_buffer_rank_equals_neighbor_lists(case, d, tile):
+    """Kernel 1's rule for d <= 32 equals the plain version; the
+    tie-heavy field gives anchors more than 32 positive IoUs, so the
+    buffer keeps its top d mid-scan."""
+    seed, n_a, m_b, n_dup = case
+    xa, ma, xb, mb = _tie_heavy(seed, n_a, m_b, n_dup)
+    plain_v, plain_i, _ = tk.topk_neighbors_plain(
+        t(xa), t(ma), t(xb), t(mb), BOX, BOX, d=d, threshold=0.3)
+    iou = n(pair_iou(t(xa), t(xb), BOX))
+    iou = np.where(ma[:, None] & mb[None, :], iou, np.float32(-1.0))
+    got_v, got_i = buffer_rank_topd(iou, mb, d, tile)
+    np.testing.assert_array_equal(got_v, n(plain_v))
+    np.testing.assert_array_equal(got_i, n(plain_i))
+
+
+def test_tie_heavy_cases_fill_the_buffer():
+    """At least one case overflows the 64-slot buffer's trigger."""
+    xa, ma, xb, mb = _tie_heavy(*CASES[1])
+    iou = n(pair_iou(t(xa), t(xb), BOX))
+    pos = ((iou > 0) & ma[:, None] & mb[None, :]).sum(1)
+    assert pos.max() > KBUF - LANES
+
+
+@pytest.mark.parametrize("d", [33, 48])
+@pytest.mark.parametrize("case", CASES)
+def test_warp_list_equals_neighbor_lists(case, d):
+    seed, n_a, m_b, n_dup = case
+    xa, ma, xb, mb = _tie_heavy(seed, n_a, m_b, n_dup)
+    plain_v, plain_i, _ = tk.topk_neighbors_plain(
+        t(xa), t(ma), t(xb), t(mb), BOX, BOX, d=d, threshold=0.3)
+    iou = n(pair_iou(t(xa), t(xb), BOX))
+    iou = np.where(ma[:, None] & mb[None, :], iou, np.float32(-1.0))
+    got_v, got_i = warp_list_topd(iou, mb, d)
+    np.testing.assert_array_equal(got_v, n(plain_v))
+    np.testing.assert_array_equal(got_i, n(plain_i))
