@@ -34,15 +34,37 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. print the ``{"kernels": [...]}`` line (launches, kernel and plain
-   times, bound, max abs error), the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+5. after phases 6 and 7, print the ``{"kernels": [...]}`` line
+   (launches, kernel and plain times, bound, max abs error; kernel 1's
+   entry carries its k5_mixed chunk as ``k5_chunk``), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
+6. ``stress_50k`` (the dense-field configuration: 50,000 particles x
+   4 pickers, box 180; the spatial path with the anchor-chunked
+   assembly): write the seed-0 field as BOX files, run
+   ``run_consensus_dir`` (spatial auto) with ``lp_device`` and
+   ``greedy`` on the golden micrographs and hold every BOX file's
+   sha256, row count and clique count to the JAX digests
+   (``tests/golden/torch_port_digests.json``); then a warm pass over
+   the configuration's :data:`STRESS_WARM` = 128 micrographs with
+   its load / compute / write split, micrographs per second, accepted
+   capacities, peak device memory and, in a profiled run of the golden
+   directory, the device's busy share;
+7. ``k5_mixed`` (5 pickers of box sizes 180, 200, 220, 160, 180, 700
+   particles each; the staged join): the golden micrographs with
+   ``lp_device``, ``lp_device --pallas`` (kernel 1 must launch),
+   ``lp_device_fused`` (every chunk must be demoted: D^4 is outside the
+   fused envelope) and ``greedy``, each against the JAX digests; kernel
+   1 at this chunk's shape (M = 16, K = 5, N = 768, the accepted d, the
+   per-picker sizes as device views) against its plain version, with
+   its time, device time and bound; then a warm pass over the
+   configuration's :data:`K5_WARM` = 1,024 micrographs.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
 Phase 2 also prints each kernel's own device time per call, summed
 from ``torch.profiler``'s kernel records.
-Everything long goes to ``chiprun_out/chip_smoke/``.
+Logs and the report go to ``chiprun_out/chip_smoke/``; the BOX
+directories to ``build/chip_smoke/``, deleted at the end.
 """
 
 import filecmp
@@ -56,11 +78,19 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
+#: the BOX directories the run writes and reads (hundreds of MB; removed
+#: when the run ends)
+WORK = os.path.join(REPO, "build", "chip_smoke")
 EXAMPLES = os.path.join(REPO, "examples", "10017")
 GOLDEN = os.path.join(REPO, "tests", "golden", "torch_port_10017")
 BOX = 180
 CHUNK = 32
 N_SYNTH = 256
+DIGESTS = os.path.join(REPO, "tests", "golden", "torch_port_digests.json")
+#: micrographs in the warm passes of the two dense configurations
+#: (each configuration's full count)
+STRESS_WARM = 128
+K5_WARM = 1024
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM3 bytes/s,
 # and float32 instructions/s outside the tensor cores.  The data sheet's
@@ -97,6 +127,22 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int, warm: int = 2) -> float:
+    """Host time per call of ``fn`` to issue its work, without waiting
+    for the card (the queue is drained before and after)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_busy(fn):
@@ -280,6 +326,269 @@ def ladder_k3():
                [torch.from_numpy(a).cuda() for a in arrays])
 
 
+# -- phases 6 and 7: the dense configurations --------------------------
+
+
+def reset_counts():
+    from repic_tpu_torch.ops import iou_pallas, megakernel
+
+    iou_pallas.LAUNCHES = 0
+    for key in megakernel.LAUNCHES:
+        megakernel.LAUNCHES[key] = 0
+    megakernel.DEMOTIONS = 0
+
+
+def read_counts() -> dict:
+    from repic_tpu_torch.ops import iou_pallas, megakernel
+
+    return {"topk_neighbors": iou_pallas.LAUNCHES, **megakernel.LAUNCHES,
+            "demotions": megakernel.DEMOTIONS}
+
+
+def clear_memo():
+    from repic_tpu_torch.pipeline import consensus
+
+    consensus._LAST_GOOD_CONFIG.clear()
+    consensus._RECENT_REQUIREMENTS.clear()
+
+
+def accepted_config():
+    """The escalation memo's (d, cap, cell_cap, pcap): its one entry,
+    or the list of them when chunks of several shapes ran."""
+    from repic_tpu_torch.pipeline import consensus
+
+    cfgs = [list(c) for c in consensus._LAST_GOOD_CONFIG.values()]
+    return cfgs[0] if len(cfgs) == 1 else cfgs
+
+
+def run_dir(in_dir, out, box, **kw):
+    """``run_consensus_dir`` on the card with the launch counts set to
+    0 just before; returns ``(stats, wall_s, counts)``."""
+    import torch
+
+    from repic_tpu_torch.pipeline import consensus
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    st = consensus.run_consensus_dir(in_dir, out, box, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return st, time.time() - t, read_counts()
+
+
+def check_digests(label, out_dir, stats, want):
+    """Every micrograph's BOX sha256, row count and clique count equal
+    the JAX digest golden."""
+    from repic_tpu_torch.utils.synthetic import file_sha256
+
+    bad = []
+    for name, w in want.items():
+        path = os.path.join(out_dir, name + ".box")
+        with open(path) as f:
+            rows = sum(1 for _ in f)
+        got = {"sha256": file_sha256(path), "rows": rows,
+               "num_cliques": stats["clique_counts"].get(name)}
+        if got != w:
+            bad.append((name, got, w))
+    if bad:
+        raise AssertionError(
+            f"{label}: {len(bad)} of {len(want)} micrographs differ from "
+            f"the JAX digests; first: {bad[0]}")
+    log(f"  {label}: {len(want)} BOX files equal the JAX digests "
+        f"(sha256, rows, cliques)")
+
+
+def golden_input(cell, golden):
+    """Write the cell's golden micrographs; their tree digest must be
+    the one the goldens were made from."""
+    from repic_tpu_torch.utils.synthetic import tree_sha256, write_cell_dir
+
+    src = os.path.join(WORK, cell + "_golden_in")
+    box = write_cell_dir(cell, src, golden["micrographs"])
+    if tree_sha256(src) != golden["input_sha256"]:
+        raise AssertionError(f"{cell}: generated input differs from the "
+                             "golden's (numpy stream or writer changed)")
+    return src, box
+
+
+def warm_pass(cell, m, setting):
+    """``m`` micrographs of ``cell`` with the escalation memo left warm
+    by the golden runs: the rate, the split, the accepted capacities
+    and the peak device memory."""
+    import torch
+
+    from repic_tpu_torch.utils.synthetic import write_cell_dir
+
+    src = os.path.join(WORK, f"{cell}_in")
+    t = time.time()
+    box = write_cell_dir(cell, src, m)
+    gen_s = time.time() - t
+    torch.cuda.reset_peak_memory_stats()
+    st, wall, counts = run_dir(src, os.path.join(WORK, f"{cell}_out"), box,
+                               solver=setting)
+    peak = torch.cuda.max_memory_allocated()
+    res = {
+        "micrographs": m, "setting": setting, "generate_s": gen_s,
+        "wall_s": wall, "micrographs_per_s": m / wall,
+        "load_s": st["load_s"], "compute_s": st["compute_s"],
+        "write_s": st["write_s"], "chunks": st["chunks"],
+        "chunk": st["chunk"], "capacity": st["capacity"],
+        "num_cliques": st["num_cliques"],
+        "particles": sum(st["particle_counts"].values()),
+        "config": accepted_config(), "peak_device_bytes": peak,
+        "launches": counts,
+    }
+    if len(st["particle_counts"]) != m or res["particles"] <= 0:
+        raise AssertionError(f"{cell} warm pass: {st['particle_counts']}")
+    log(f"phase {'6' if cell == 'stress_50k' else '7'}: {cell} warm pass, "
+        f"{m} micrographs ({setting}): wall {wall:.2f}s = "
+        f"{m / wall:.2f} micrographs/s; load {st['load_s']:.3f}s, compute "
+        f"{st['compute_s']:.3f}s, write {st['write_s']:.3f}s; "
+        f"{st['chunks']} chunks of {st['chunk']} at N = {st['capacity']}; "
+        f"(d, cap, cell_cap, pcap) = {res['config']}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; {res['particles']} particles")
+    return res
+
+
+def profiled(label, src, box, setting):
+    """A warm run of ``src`` under the profiler: the device busy share."""
+    from repic_tpu_torch.pipeline import consensus
+
+    out = os.path.join(WORK, label + "_profiled")
+    wall, busy, top = device_busy(lambda: consensus.run_consensus_dir(
+        src, out, box, solver=setting, device="cuda"))
+    if busy is None:
+        log(f"  {label}: device busy share not measured (the profiler saw "
+            "no device events)")
+    else:
+        log(f"  {label}: profiled warm run wall {wall:.3f}s, device busy "
+            f"{busy:.4f}s = {100 * busy / wall:.1f}%")
+        for name, sec in top:
+            log(f"    {sec * 1e3:9.3f} ms  {name[:90]}")
+    return {"wall_s": wall, "device_busy_s": busy, "top_kernels_s": top}
+
+
+def phase_stress(golden):
+    g = golden["stress_50k"]
+    src, box = golden_input("stress_50k", g)
+    runs = {}
+    for setting in ("lp_device", "greedy"):
+        clear_memo()
+        out = os.path.join(WORK, "stress_50k_" + setting)
+        st, wall, counts = run_dir(src, out, box, solver=setting)
+        check_digests(f"stress_50k {setting}", out, st,
+                      g["settings"][setting])
+        runs[setting] = {"wall_s": wall, "config": accepted_config(),
+                         "num_cliques": st["num_cliques"],
+                         "compute_s": st["compute_s"], "launches": counts}
+        log(f"phase 6: stress_50k {setting}: {g['micrographs']} "
+            f"micrographs byte-identical to JAX; wall {wall:.2f}s, "
+            f"(d, cap, cell_cap, pcap) = {runs[setting]['config']}")
+    # the memo stays warm from here on (same shape, sizes, threshold)
+    runs["profiled"] = profiled("stress_50k", src, box, "lp_device")
+    runs["warm"] = warm_pass("stress_50k", STRESS_WARM, "lp_device")
+    return runs
+
+
+def phase_k5(golden):
+    import numpy as np
+    import torch
+
+    from repic_tpu_torch.ops import iou_pallas
+    from repic_tpu_torch.parallel.batching import (
+        bucket_size, pad_batch, to_device,
+    )
+    from repic_tpu_torch.utils import box_io
+
+    g = golden["k5_mixed"]
+    src, box = golden_input("k5_mixed", g)
+    runs = {}
+    for setting, solver, pallas in (
+        ("lp_device", "lp_device", False),
+        ("lp_device_pallas", "lp_device", True),
+        ("lp_device_fused", "lp_device_fused", False),
+        ("greedy", "greedy", False),
+    ):
+        clear_memo()
+        out = os.path.join(WORK, "k5_mixed_" + setting)
+        st, wall, counts = run_dir(src, out, box, solver=solver,
+                                   use_pallas=pallas)
+        check_digests(f"k5_mixed {setting}", out, st, g["settings"][
+            "greedy" if solver == "greedy" else "lp_device"])
+        if pallas and counts["topk_neighbors"] <= 0:
+            raise AssertionError("k5_mixed --pallas: kernel 1 never launched")
+        if solver == "lp_device_fused" and counts["demotions"] != st["chunks"]:
+            raise AssertionError(
+                f"k5_mixed fused: {counts['demotions']} demotions for "
+                f"{st['chunks']} chunks (D^4 is outside the envelope)")
+        runs[setting] = {"wall_s": wall, "config": accepted_config(),
+                         "chunks": st["chunks"], "chunk": st["chunk"],
+                         "launches": counts, "compute_s": st["compute_s"]}
+        log(f"phase 7: k5_mixed {setting}: {g['micrographs']} micrographs "
+            f"byte-identical to JAX; wall {wall:.2f}s, {st['chunks']} "
+            f"chunks, (d, cap, cell_cap, pcap) = {runs[setting]['config']}"
+            f", launches {counts}")
+    runs["profiled"] = profiled("k5_mixed", src, box, "lp_device")
+
+    # kernel 1 at this chunk's shape, its sizes as enumerate_cliques
+    # hands them over: device views of the per-picker sizes
+    pickers = box_io.discover_picker_dirs(src)
+    names = box_io.micrograph_names(os.path.join(src, pickers[0]))
+    loaded = [(nm, box_io.load_micrograph_set(src, pickers, nm))
+              for nm in names]
+    nb = bucket_size(max(bs.n for _, s in loaded for bs in s))
+    m = runs["lp_device_pallas"]["chunk"]
+    db = to_device(pad_batch(loaded[:m], pad_micrographs_to=m, capacity=nb),
+                   "cuda")
+    d = runs["lp_device_pallas"]["config"][0]
+    k, n = db.xy.shape[1], db.xy.shape[2]
+    b = m * (k - 1)
+    sizes = torch.from_numpy(np.asarray(box, np.float32)).cuda()
+    args = (
+        db.xy[:, :1].expand(m, k - 1, n, 2).reshape(b, n, 2),
+        db.mask[:, :1].expand(m, k - 1, n).reshape(b, n),
+        db.xy[:, 1:].reshape(b, n, 2), db.mask[:, 1:].reshape(b, n),
+        sizes[0].expand(b), sizes[1:].repeat(m),
+    )
+    got = iou_pallas.topk_neighbors(*args, d=d)
+    want = iou_pallas.topk_neighbors_plain(*args, d=d)
+    err = compare("topk k5 chunk", got, want)
+    pairs = float((args[1].sum(1).double() * args[3].sum(1).double()).sum())
+    # as at the main chunk, plus each item's two box sizes
+    b_ms, by = bound(b * n * (9 + 9) + b * n * (8 * d + 4) + b * 8,
+                     pairs * 14.0)
+    runs["k5_chunk"] = {
+        "shape": f"M={m} K={k} N={n} d={d}, per-picker sizes on the card",
+        "launches": runs["lp_device_pallas"]["launches"]["topk_neighbors"],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: iou_pallas.topk_neighbors(*args, d=d), 20),
+        "device_ms": device_ms(lambda: iou_pallas.topk_neighbors(*args, d=d),
+                               20, "topk_neighbors_kernel"),
+        "plain_ms": cuda_ms(
+            lambda: iou_pallas.topk_neighbors_plain(*args, d=d), 5),
+        "bound_ms": b_ms, "bound_by": by,
+        # the host's side of the same call: the time to issue it (no
+        # wait for the card), and the share of that in the two sides'
+        # size arguments (the per-picker views made contiguous)
+        "issue_ms": host_ms(lambda: iou_pallas.topk_neighbors(*args, d=d),
+                            20),
+        "size_arg_ms": host_ms(lambda: (
+            iou_pallas._size_arg(args[4], b, db.xy.device),
+            iou_pallas._size_arg(args[5], b, db.xy.device)), 20),
+    }
+    kc = runs["k5_chunk"]
+    log(f"phase 7: kernel 1 at the k5_mixed chunk ({kc['shape']}): equal "
+        f"to its plain version (max abs err {err}); kernel {kc['ms']:.4f} "
+        f"ms, device " + ("not measured" if kc["device_ms"] is None else
+                          f"{kc['device_ms']:.4f} ms")
+        + f", plain {kc['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({by}); "
+        f"host issue {kc['issue_ms']:.4f} ms, of it size arguments "
+        f"{kc['size_arg_ms']:.4f} ms; "
+        f"{kc['launches']} launches in the --pallas run")
+    runs["warm"] = warm_pass("k5_mixed", K5_WARM, "lp_device")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -300,6 +609,8 @@ def main() -> int:
 
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
     card = smi()
     log("card:", card)
     log("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -366,7 +677,7 @@ def main() -> int:
     log("phase 2: contract ladders equal (kernels 1-3)")
 
     # the main path's chunk: 32 micrographs of the synthetic set
-    synth = os.path.join(OUT, "synthetic_in")
+    synth = os.path.join(WORK, "synthetic_in")
     write_synthetic_dir(synth, n_micrographs=N_SYNTH, seed=0)
     pickers = box_io.discover_picker_dirs(synth)
     names = box_io.micrograph_names(os.path.join(synth, pickers[0]))
@@ -377,9 +688,8 @@ def main() -> int:
     db = to_device(batch, dev)
     consensus.run_consensus_batch(batch, BOX, solver="lp_device",
                                   device=dev)
-    d, cap = next(iter(consensus._LAST_GOOD_CONFIG.values()))[:2]
-    consensus._LAST_GOOD_CONFIG.clear()
-    consensus._RECENT_REQUIREMENTS.clear()
+    d, cap = accepted_config()[:2]
+    clear_memo()
     m, k, n = batch.xy.shape[:3]
     log(f"chunk shape: M={m} K={k} N={n}; main-path capacities "
         f"D={d} C={cap}")
@@ -514,7 +824,7 @@ def main() -> int:
         ("lp_device_pallas", ["--solver", "lp_device", "--pallas"]),
         ("lp_device_fused", ["--solver", "lp_device_fused"]),
     ):
-        out = os.path.join(OUT, "e10017_" + setting)
+        out = os.path.join(WORK, "e10017_" + setting)
         t = time.time()
         proc = subprocess.run(
             [sys.executable, "-m", "repic_tpu_torch", "consensus",
@@ -545,25 +855,14 @@ def main() -> int:
         ("lp_device_fused", "lp_device_fused", False),
         ("lp_device_pallas", "lp_device", True),
     ):
-        out = os.path.join(OUT, "synthetic_" + setting)
+        out = os.path.join(WORK, "synthetic_" + setting)
         walls = []
         for _ in range(2):   # cold, then warm
-            consensus._LAST_GOOD_CONFIG.clear()
-            consensus._RECENT_REQUIREMENTS.clear()
-            iou_pallas.LAUNCHES = 0
-            for key in megakernel.LAUNCHES:
-                megakernel.LAUNCHES[key] = 0
-            megakernel.DEMOTIONS = 0
-            torch.cuda.synchronize()
-            t = time.time()
-            st = consensus.run_consensus_dir(
-                synth, out, BOX, solver=solver, use_pallas=pallas,
-                device="cuda")
-            torch.cuda.synchronize()
-            walls.append(time.time() - t)
-            counts = {"topk_neighbors": iou_pallas.LAUNCHES,
-                      **megakernel.LAUNCHES}
-            demoted = megakernel.DEMOTIONS
+            clear_memo()
+            st, wall, counts = run_dir(synth, out, BOX, solver=solver,
+                                       use_pallas=pallas)
+            walls.append(wall)
+            demoted = counts.pop("demotions")
         # a third run under the profiler: the device's busy share
         wall_p, busy, top = device_busy(lambda: consensus.run_consensus_dir(
             synth, out, BOX, solver=solver, use_pallas=pallas,
@@ -619,6 +918,12 @@ def main() -> int:
                 raise AssertionError(f"{f}: bad row {line!r}")
     log("phase 4: fused and staged+pallas BOX outputs byte-identical")
 
+    # -- phases 6 and 7: the dense configurations --------------------
+    with open(DIGESTS) as f:
+        golden = json.load(f)
+    stress = phase_stress(golden)
+    k5 = phase_k5(golden)
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -640,9 +945,11 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
+    kernels[0]["k5_chunk"] = k5["k5_chunk"]
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
-              "synthetic_256": rates, "dual_chain": chain_report}
+              "synthetic_256": rates, "dual_chain": chain_report,
+              "stress_50k": stress, "k5_mixed": k5}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))
@@ -656,4 +963,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)

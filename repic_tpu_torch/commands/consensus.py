@@ -27,7 +27,16 @@ def add_arguments(parser):
     parser.add_argument(
         "--pallas",
         action="store_true",
-        help="staged neighbour search through the fused top-D kernel",
+        help="dense neighbour search through the fused top-D kernel; "
+        "ignored with a warning when the spatial (bucketed) search is "
+        "selected (--spatial on, or auto above 4096 particles)",
+    )
+    parser.add_argument(
+        "--spatial",
+        choices=["auto", "on", "off"],
+        default="auto",
+        help="bucketed neighbor search for dense micrographs "
+        "(auto: by particle count)",
     )
     parser.add_argument(
         "--threshold", type=float, default=0.3, help="IoU edge threshold"
@@ -56,6 +65,7 @@ def main(args):
         threshold=args.threshold,
         max_neighbors=args.max_neighbors,
         num_particles=args.num_particles,
+        spatial={"auto": None, "on": True, "off": False}[args.spatial],
         solver=args.solver,
         use_pallas=args.pallas,
         device=args.device,

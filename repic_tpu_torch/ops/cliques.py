@@ -15,32 +15,33 @@ Per clique: confidence = median of the K member confidences, weight
 = confidence * median of the C(K,2) edge IoUs, representative = the
 member of largest weighted degree (first maximum).
 
-Every function here takes a leading micrograph axis M.  Only the full
-product assembly is ported; configurations that need the anchor-
-chunked or staged assembly raise ``NotImplementedError``.
+Every function here takes a leading micrograph axis M.  Three
+assemblies share those rules, chosen as the reference chooses them
+(:func:`enumerate_cliques`): the full product; the anchor-chunked
+product, compacted per chunk (N > ``anchor_chunk``); and the staged
+join, one picker at a time with compaction between stages (D^(K-1) >
+256).  :func:`enumerate_cliques_bucketed` takes its neighbour lists
+from the spatial hash of :mod:`~repic_tpu_torch.ops.spatial` instead
+of the dense IoU matrices.
 """
 
 from __future__ import annotations
 
 import itertools
 import numbers
+import warnings
 from typing import NamedTuple
 
 import torch
 
 from repic_tpu_torch.ops.iou import pair_iou_xy, pairwise_iou_matrix
+from repic_tpu_torch.ops.iou_pallas import MAX_D, topk_neighbors
 
 DEFAULT_THRESHOLD = 0.3
 
-# Candidate-product size above which the reference runs its staged
-# join.
+# Candidate-product size above which the staged join replaces the
+# one-shot product (given a clique capacity to bound its stages).
 _STAGED_DPROD = 256
-
-_NOT_PORTED = (
-    "not ported yet (ROADMAP Queue 1 item 6: the anchor-chunked and "
-    "staged clique assembly)"
-)
-
 
 class CliqueSet(NamedTuple):
     """Padded candidate k-cliques of M micrographs (capacity C)."""
@@ -52,7 +53,13 @@ class CliqueSet(NamedTuple):
     rep_slot: torch.Tensor      # (M, C) int32 representative's picker
     rep_xy: torch.Tensor        # (M, C, 2) float32
     max_adjacency: torch.Tensor  # (M,) int32 neighbour-overflow probe
-    num_valid: torch.Tensor     # (M,) int32 valid before compaction
+    max_cell_count: torch.Tensor  # (M,) int32 cell overflow (0: dense)
+    # (M,) int32 valid before compaction (product paths); on the staged
+    # path the survivors at this capacity, the true count whenever
+    # max_partial fits
+    num_valid: torch.Tensor
+    # (M,) int32 staged-join partial-tuple probe (0 on the products)
+    max_partial: torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -116,6 +123,10 @@ def dense_neighbors(xy, mask, sizes, threshold: float, d: int):
     return vals, idxs, torch.stack(adj).amax(0)
 
 
+def _zeros_m(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(like.shape[0], dtype=torch.int32, device=like.device)
+
+
 def enumerate_cliques(
     xy, conf, mask, box_size,
     *,
@@ -124,6 +135,7 @@ def enumerate_cliques(
     use_pallas: bool = False,
     clique_capacity: int | None = None,
     anchor_chunk: int | None = None,
+    partial_capacity: int | None = None,
 ) -> CliqueSet:
     """Enumerate all k-cliques of each micrograph's overlap graph.
 
@@ -133,35 +145,29 @@ def enumerate_cliques(
         use_pallas: neighbour search through kernel 1
             (:func:`~repic_tpu_torch.ops.iou_pallas.topk_neighbors`)
             instead of the IoU matrix and a sort.
-        clique_capacity / anchor_chunk: as in the reference; a
-            configuration that selects the staged or the anchor-chunked
-            assembly raises ``NotImplementedError``.
+        clique_capacity / anchor_chunk / partial_capacity: with a
+            clique capacity, D^(K-1) > 256 runs the staged join (its
+            stages hold ``partial_capacity``, default the clique
+            capacity, rows), else N > ``anchor_chunk`` the anchor-
+            chunked product compacted to ``clique_capacity`` rows;
+            otherwise the full product runs.
     """
-    _, k, n, _ = xy.shape
+    m, k, n, _ = xy.shape
     if k < 2:
         raise ValueError(
             f"clique enumeration needs at least 2 pickers, got K={k}"
         )
     d = min(max_neighbors, n)
     sizes = _per_picker_sizes(box_size, k, xy.dtype, xy.device)
-    if clique_capacity is not None and d ** (k - 1) > _STAGED_DPROD:
-        raise NotImplementedError(
-            f"D^(K-1) = {d ** (k - 1)} > {_STAGED_DPROD} selects the "
-            f"staged join, {_NOT_PORTED}"
+    if use_pallas and d > MAX_D:
+        warnings.warn(
+            f"escalated neighbor capacity D={d} exceeds the neighbour "
+            f"kernel's cap ({MAX_D}); using the matrix path for "
+            "this program",
+            stacklevel=2,
         )
-    if (
-        clique_capacity is not None
-        and anchor_chunk is not None
-        and n > anchor_chunk
-    ):
-        raise NotImplementedError(
-            f"N = {n} > anchor_chunk = {anchor_chunk} selects the "
-            f"anchor-chunked assembly, {_NOT_PORTED}"
-        )
+        use_pallas = False
     if use_pallas:
-        from repic_tpu_torch.ops.iou_pallas import topk_neighbors
-
-        m = xy.shape[0]
         b = m * (k - 1)
         # a Python number travels as a kernel argument; per-picker
         # sizes as the per-item views of `sizes`, on xy's device
@@ -186,8 +192,72 @@ def enumerate_cliques(
         nbr_iou, nbr_idx, max_adj = dense_neighbors(
             xy, mask, sizes, threshold, d
         )
+    return _assemble(
+        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
+        _zeros_m(xy), d, clique_capacity, anchor_chunk, partial_capacity,
+    )
+
+
+def enumerate_cliques_bucketed(
+    xy, conf, mask, box_size,
+    *,
+    threshold: float = DEFAULT_THRESHOLD,
+    max_neighbors: int = 16,
+    grid: int = 32,
+    cell_capacity: int = 64,
+    clique_capacity: int | None = None,
+    anchor_chunk: int = 4096,
+    partial_capacity: int | None = None,
+) -> CliqueSet:
+    """:func:`enumerate_cliques` with neighbour candidates from a
+    spatial hash (:mod:`~repic_tpu_torch.ops.spatial`): O(N * 9 *
+    cell_capacity) memory instead of O(N^2).  Cells are the largest
+    box wide (two boxes overlap only when their corners differ by less
+    than the larger size on both axes); ``max_cell_count`` reports the
+    densest cell, complete iff ``<= cell_capacity``."""
+    from repic_tpu_torch.ops.spatial import bucketed_pair_neighbors
+
+    m, k, n, _ = xy.shape
+    if k < 2:
+        raise ValueError(
+            f"clique enumeration needs at least 2 pickers, got K={k}"
+        )
+    d = min(max_neighbors, n)
+    sizes = _per_picker_sizes(box_size, k, xy.dtype, xy.device)
+    nbr_iou, nbr_idx, max_adj, max_cell = bucketed_pair_neighbors(
+        xy, mask, sizes, grid=grid, cell_capacity=cell_capacity,
+        threshold=threshold, d=d,
+    )
+    return _assemble(
+        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
+        max_cell, d, clique_capacity, anchor_chunk, partial_capacity,
+    )
+
+
+def _assemble(
+    xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adjacency,
+    max_cell_count, d, clique_capacity, anchor_chunk, partial_capacity,
+) -> CliqueSet:
+    """The reference's choice of assembly for ``d`` neighbours per
+    picker pair: staged, anchor-chunked or the full product."""
+    k, n = xy.shape[1], xy.shape[2]
+    probes = (max_adjacency, max_cell_count)
+    if clique_capacity is not None and d ** (k - 1) > _STAGED_DPROD:
+        return _assemble_cliques_staged(
+            xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, *probes,
+            partial_capacity or clique_capacity,
+        )
+    if (
+        clique_capacity is not None
+        and anchor_chunk is not None
+        and n > anchor_chunk
+    ):
+        return _assemble_cliques_chunked(
+            xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, *probes,
+            clique_capacity, anchor_chunk,
+        )
     return _assemble_cliques(
-        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj
+        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, *probes
     )
 
 
@@ -243,14 +313,35 @@ def _assemble_block(
     edges = torch.stack(edge_vals)               # (E, M, A, Dprod)
     valid = member_ok & (edges > _f32(threshold, xy)).all(0)
 
-    confs = torch.stack(
-        [_gather_rows(conf[:, p], members[p].long()) for p in range(k)]
-    )                                            # (K, M, A, Dprod)
-    confidence = median0(confs)
-    edge_med = median0(edges)
-    w = torch.where(valid, confidence * edge_med, zero)
-    confidence = torch.where(valid, confidence, zero)
+    member_idx = torch.stack(members, dim=-1)    # (M, A, Dprod, K)
+    w, confidence, rep_slot, rep_xy = _clique_stats(
+        xy, conf, valid, edges, member_idx
+    )
+    c = a * dprod
+    return dict(
+        member_idx=member_idx.reshape(m, c, k).to(torch.int32),
+        valid=valid.reshape(m, c),
+        w=w.reshape(m, c),
+        confidence=confidence.reshape(m, c),
+        rep_slot=rep_slot.reshape(m, c),
+        rep_xy=rep_xy.reshape(m, c, 2),
+    )
 
+
+def _clique_stats(xy, conf, valid, edges, member_idx):
+    """Per clique (any shape ``(M, ...)``): weight = median member
+    confidence x median edge IoU, the confidence, and the member of
+    largest weighted degree (first maximum) with its coordinates;
+    ``edges`` is ``(E, M, ...)`` in :func:`_edge_pairs` order."""
+    m, k, n, _ = xy.shape
+    zero = _f32(0.0, xy)
+    confs = torch.stack([
+        _gather_rows(conf[:, p], member_idx[..., p].long())
+        for p in range(k)
+    ])
+    confidence = median0(confs)
+    w = torch.where(valid, confidence * median0(edges), zero)
+    confidence = torch.where(valid, confidence, zero)
     degs = []
     for k_slot in range(k):
         incident = [
@@ -261,26 +352,20 @@ def _assemble_block(
         degs.append(sum(incident))
     # torch.argmax returns the first maximum
     rep_slot = torch.argmax(torch.stack(degs), dim=0).to(torch.int32)
-    member_idx = torch.stack(members, dim=-1)    # (M, A, Dprod, K)
     rep_particle = torch.gather(
         member_idx, -1, rep_slot[..., None].long()
     )[..., 0]
-    flat = (rep_slot.long() * n + rep_particle.long())
-    rep_x = _gather_rows(xs.reshape(m, k * n), flat)
-    rep_y = _gather_rows(ys.reshape(m, k * n), flat)
-    c = a * dprod
-    return dict(
-        member_idx=member_idx.reshape(m, c, k).to(torch.int32),
-        valid=valid.reshape(m, c),
-        w=w.reshape(m, c),
-        confidence=confidence.reshape(m, c),
-        rep_slot=rep_slot.reshape(m, c),
-        rep_xy=torch.stack([rep_x, rep_y], -1).reshape(m, c, 2),
-    )
+    flat = rep_slot.long() * n + rep_particle.long()
+    rep_xy = torch.stack([
+        _gather_rows(xy[..., 0].reshape(m, k * n), flat),
+        _gather_rows(xy[..., 1].reshape(m, k * n), flat),
+    ], -1)
+    return w, confidence, rep_slot, rep_xy
 
 
 def _assemble_cliques(
     xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adjacency,
+    max_cell_count,
 ) -> CliqueSet:
     """Full-anchor clique assembly (all anchors in one block)."""
     n = xy.shape[2]
@@ -290,10 +375,62 @@ def _assemble_cliques(
         mask[:, 0], nbr_idx, nbr_iou,
     )
     return CliqueSet(
-        max_adjacency=max_adjacency.to(torch.int32),
+        max_adjacency=max_adjacency,
+        max_cell_count=max_cell_count,
         num_valid=block["valid"].sum(-1, dtype=torch.int32),
+        max_partial=_zeros_m(xy),
         **block,
     )
+
+
+def _assemble_cliques_chunked(
+    xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adjacency,
+    max_cell_count, clique_capacity, anchor_chunk,
+) -> CliqueSet:
+    """Anchor-chunked assembly: blocks of ``anchor_chunk`` anchors
+    (the last padded with masked anchors and sentinel neighbours), each
+    compacted by index to ``min(cap, a * D^(K-1))`` rows, then one
+    weight compaction of the merged buffers to ``clique_capacity``.
+    Chunking bounds memory only: while nothing overflows, the rows are
+    the full product's."""
+    m, k, n, _ = xy.shape
+    dev = xy.device
+    a = min(anchor_chunk, n)
+    pad = (-n) % a
+    aid = torch.cat([
+        torch.arange(n, dtype=torch.int32, device=dev),
+        torch.zeros(pad, dtype=torch.int32, device=dev),
+    ])
+    amask = torch.cat(
+        [mask[:, 0], torch.zeros((m, pad), dtype=torch.bool, device=dev)], 1
+    )
+    d = nbr_idx[0].shape[-1]
+
+    def grow(x, fill):
+        return torch.cat([x, torch.full((m, pad, d), fill, dtype=x.dtype,
+                                        device=dev)], 1)
+
+    nbr_idx = [grow(x, n) for x in nbr_idx]
+    nbr_iou = [grow(x, 0.0) for x in nbr_iou]
+    keep = min(clique_capacity, a * d ** (k - 1))
+    parts, num_valid = [], _zeros_m(xy)
+    for s in range(0, n + pad, a):
+        block = _assemble_block(
+            xy, conf, mask, sizes, threshold,
+            aid[s : s + a], amask[:, s : s + a],
+            [x[:, s : s + a] for x in nbr_idx],
+            [x[:, s : s + a] for x in nbr_iou],
+        )
+        num_valid = num_valid + block["valid"].sum(-1, dtype=torch.int32)
+        parts.append(_stream_compact(block, keep))
+    merged = CliqueSet(
+        max_adjacency=max_adjacency,
+        max_cell_count=max_cell_count,
+        num_valid=num_valid,
+        max_partial=_zeros_m(xy),
+        **{f: torch.cat([p[f] for p in parts], 1) for f in parts[0]},
+    )
+    return compact_cliques(merged, clique_capacity)
 
 
 def _stream_compact(block: dict, keep: int) -> dict:
@@ -338,4 +475,106 @@ def compact_cliques(cs: CliqueSet, capacity: int) -> CliqueSet:
         confidence=take(cs.confidence),
         rep_slot=take(cs.rep_slot),
         rep_xy=take(cs.rep_xy),
+    )
+
+
+def _assemble_cliques_staged(
+    xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adjacency,
+    max_cell_count, capacity,
+) -> CliqueSet:
+    """Staged k-partite join with compaction between stages.
+
+    Partial cliques grow one picker at a time: stage ``s`` joins each
+    partial tuple with its anchor's picker-``s`` neighbours (rows in
+    ``repeat`` order), checks the new member against every earlier one,
+    and compacts the survivors by index.  A buffer keeps its natural
+    width while that is within ``capacity`` and only the last is cut
+    to ``capacity`` rows (the output width).  A valid clique survives
+    every stage unless a compaction overflows; ``max_partial``, the
+    most tuples any stage kept, is what the caller escalates the
+    partial capacity to.  Statistics as in :func:`_assemble_block`,
+    every edge from coordinates.
+    """
+    m, k, n, _ = xy.shape
+    d = nbr_idx[0].shape[-1]
+    dev = xy.device
+    thr = _f32(threshold, xy)
+    xs, ys = xy[..., 0], xy[..., 1]                # (M, K, N)
+
+    def at(src, idx):
+        return _gather_rows(src, idx.long())
+
+    # stage 1: (anchor, n_1) pairs straight from the neighbour lists
+    anchor = torch.arange(n, dtype=torch.int32, device=dev)
+    anchor = anchor.repeat_interleave(d).expand(m, n * d)
+    m1 = nbr_idx[0].reshape(m, n * d)
+    in_range = m1 < n
+    m1 = torch.where(in_range, m1, torch.zeros_like(m1)).to(torch.int32)
+    valid = (
+        at(mask[:, 0], anchor) & in_range & at(mask[:, 1], m1)
+        & (nbr_iou[0].reshape(m, n * d) > thr)
+    )
+    members = torch.stack([anchor, m1], -1)        # (M, N*D, 2)
+    max_partial = valid.sum(-1, dtype=torch.int32)
+    if k == 2 or members.shape[1] > capacity:
+        part = _stream_compact({"members": members, "valid": valid},
+                               capacity)
+        members, valid = part["members"], part["valid"]
+
+    # stages 2..K-1
+    for s in range(2, k):
+        slots = members.shape[1]
+        anchors = members[..., 0].long()
+        cand = torch.gather(
+            nbr_idx[s - 1], 1, anchors[..., None].expand(m, slots, d)
+        ).reshape(m, slots * d)
+        ciou = torch.gather(
+            nbr_iou[s - 1], 1, anchors[..., None].expand(m, slots, d)
+        ).reshape(m, slots * d)
+        ext = members.repeat_interleave(d, dim=1)  # (M, slots*D, s)
+        in_range = cand < n
+        m_new = torch.where(in_range, cand, torch.zeros_like(cand))
+        v = (
+            valid.repeat_interleave(d, dim=1) & (ciou > thr) & in_range
+            & at(mask[:, s], m_new)
+        )
+        for t in range(1, s):
+            e = pair_iou_xy(
+                at(xs[:, t], ext[..., t]), at(ys[:, t], ext[..., t]),
+                at(xs[:, s], m_new), at(ys[:, s], m_new),
+                sizes[t], sizes[s],
+            )
+            v = v & (e > thr)
+        members = torch.cat([ext, m_new.to(torch.int32)[..., None]], -1)
+        max_partial = torch.maximum(max_partial, v.sum(-1, dtype=torch.int32))
+        if s == k - 1 or members.shape[1] > capacity:
+            part = _stream_compact({"members": members, "valid": v},
+                                   capacity)
+            members, valid = part["members"], part["valid"]
+        else:
+            valid = v
+
+    mx = [at(xs[:, p], members[..., p]) for p in range(k)]
+    my = [at(ys[:, p], members[..., p]) for p in range(k)]
+    zero = _f32(0.0, xy)
+    edges = torch.stack([
+        torch.where(valid, pair_iou_xy(mx[p], my[p], mx[q], my[q],
+                                       sizes[p], sizes[q]), zero)
+        for p, q in _edge_pairs(k)
+    ])                                             # (E, M, cap)
+    valid = valid & (edges > thr).all(0)
+    w, confidence, rep_slot, rep_xy = _clique_stats(
+        xy, conf, valid, edges, members
+    )
+    return CliqueSet(
+        member_idx=members.to(torch.int32),
+        valid=valid,
+        w=w,
+        confidence=confidence,
+        rep_slot=rep_slot,
+        rep_xy=rep_xy,
+        max_adjacency=max_adjacency,
+        max_cell_count=max_cell_count,
+        num_valid=valid.sum(-1, dtype=torch.int32),
+        max_partial=max_partial,
     )

@@ -18,7 +18,7 @@ order — so ``consensus_one``'s shared weight compaction yields the
 same buffer on both rungs, and the BOX output is byte-identical.
 
 Eligibility (:func:`fused_eligible`) is the reference's envelope:
-dense path, ``2 <= K <= 6``, ``N <= 8192``, ``D^(K-1) <= 4096``.
+dense path (no spatial grid), ``2 <= K <= 6``, ``N <= 8192``, ``D^(K-1) <= 4096``.
 Outside it ``consensus_one`` demotes statically to the staged program
 (counted in :data:`DEMOTIONS`).
 """
@@ -60,13 +60,15 @@ SOLVE_CHAIN = None
 _SOLVE_SMEM_LIMIT = 220_000
 
 
-def fused_eligible(k: int, n: int, max_neighbors: int) -> bool:
+def fused_eligible(
+    k: int, n: int, max_neighbors: int, *, spatial_grid=None
+) -> bool:
     """Static envelope check: can the fused program run this config?
-    (The port has only the dense path, so no spatial grid to rule
-    out.)"""
+    A spatial grid (the bucketed neighbour search) is outside it."""
     d = min(max_neighbors, n)
     return (
-        2 <= k <= _FUSED_MAX_K
+        spatial_grid is None
+        and 2 <= k <= _FUSED_MAX_K
         and 1 <= n <= _FUSED_MAX_N
         and d ** (k - 1) <= _FUSED_MAX_DPROD
     )
@@ -293,5 +295,7 @@ def fused_cliqueset(
         rep_slot=rep_slot,
         rep_xy=rep_xy,
         max_adjacency=max_adjacency,
+        max_cell_count=torch.zeros_like(num_valid),
         num_valid=num_valid,
+        max_partial=torch.zeros_like(num_valid),
     )

@@ -4,17 +4,22 @@ The pipeline of ``repic_tpu.pipeline.consensus`` on one device:
 
 1. load every picker's BOX files and pad them into ``(M, K, N)``
    chunks (:mod:`repic_tpu_torch.parallel.batching`);
-2. probe the dense adjacency once per batch shape and escalate the
-   neighbour and clique capacities straight to what a run observed
-   (:func:`run_consensus_batch`);
+2. probe the adjacency once per batch shape and escalate the
+   neighbour, clique, cell and partial-tuple capacities straight to
+   what a run observed (:func:`run_consensus_batch`);
 3. run :func:`consensus_one` over the whole chunk at once;
 4. fetch one packed array per chunk and render the BOX files
    (:func:`emit_box_chunk`).
 
-``solver="lp_device_fused"`` takes kernels 2 and 3 when the
+Above :data:`SPATIAL_THRESHOLD` particles per picker (or with
+``spatial=True``) the neighbour search is the bucketed one of
+:mod:`~repic_tpu_torch.ops.spatial`, probed for its cell capacity
+first; the clique assembly is staged, anchor-chunked or the full
+product as :func:`~repic_tpu_torch.ops.cliques.enumerate_cliques`
+chooses.  ``solver="lp_device_fused"`` takes kernels 2 and 3 when the
 configuration is inside the fused envelope and demotes statically to
 the staged ``lp_device`` program otherwise; ``use_pallas`` takes
-kernel 1 for the staged neighbour search.  The journal, resume,
+kernel 1 for the dense neighbour search.  The journal, resume,
 cluster, gang, striped and telemetry layers of the reference are not
 ported yet.
 """
@@ -24,6 +29,7 @@ from __future__ import annotations
 import os
 import shutil
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -33,9 +39,15 @@ from repic_tpu_torch.ops.cliques import (
     DEFAULT_THRESHOLD,
     compact_cliques,
     enumerate_cliques,
+    enumerate_cliques_bucketed,
 )
 from repic_tpu_torch.ops.iou import pairwise_iou_matrix
 from repic_tpu_torch.ops.solver import pack_cliques_for_solver, solve_greedy
+from repic_tpu_torch.ops.spatial import (
+    bucket_particles,
+    bucketed_pair_neighbors,
+    grid_size,
+)
 from repic_tpu_torch.parallel.batching import (
     PaddedBatch,
     bucket_size,
@@ -46,6 +58,11 @@ from repic_tpu_torch.solver.dual import solve_lp_device
 from repic_tpu_torch.utils import box_io
 
 SOLVERS = ("lp_device", "lp_device_fused", "greedy")
+
+_UNPORTED_SOLVER = (
+    "solver {!r} is not ported yet (ROADMAP Queue 1 item 4: the lp "
+    "and exact rungs); choose one of {}"
+)
 
 #: particles per picker above which the reference switches to its
 #: spatial (bucketed) neighbour search
@@ -64,6 +81,8 @@ class ConsensusResult(NamedTuple):
     valid: torch.Tensor        # (M, C) bool — real clique
     num_cliques: torch.Tensor  # (M,) valid cliques before compaction
     max_adjacency: torch.Tensor  # (M,) neighbour-overflow probe
+    max_cell_count: torch.Tensor  # (M,) cell-overflow probe (0: dense)
+    max_partial: torch.Tensor  # (M,) staged-join probe (0: products)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -84,30 +103,38 @@ def consensus_one(
     threshold: float = DEFAULT_THRESHOLD,
     max_neighbors: int = 16,
     clique_capacity: int = 4096,
+    spatial_grid: int | None = None,
+    cell_capacity: int = 64,
     solver: str = "lp_device",
     use_pallas: bool = False,
+    partial_capacity: int | None = None,
 ) -> ConsensusResult:
     """Full consensus for a batch of M micrographs.
 
     Args:
         xy/conf/mask: ``(M, K, N, 2)`` / ``(M, K, N)`` tensors.
         box_size: scalar or ``(K,)`` box edges.
+        spatial_grid: grid edge G of the bucketed neighbour search
+            (``cell_capacity`` slots per cell); None runs the dense one.
         solver: ``"lp_device"`` (dual decomposition), ``"greedy"``, or
             ``"lp_device_fused"`` (kernels 2 and 3 inside the fused
             envelope, the staged ``lp_device`` program outside it).
-        use_pallas: staged neighbour search through kernel 1.
+        use_pallas: dense neighbour search through kernel 1.
+        partial_capacity: rows of the staged join's buffers (default
+            ``clique_capacity``).
     """
     if solver not in SOLVERS:
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 9); choose one of {SOLVERS}"
-        )
+        raise NotImplementedError(_UNPORTED_SOLVER.format(solver, SOLVERS))
     _, k, n, _ = xy.shape
     use_megakernel = False
     if solver == "lp_device_fused":
         from repic_tpu_torch.ops import megakernel
 
-        use_megakernel = megakernel.fused_eligible(k, n, max_neighbors)
+        use_megakernel = megakernel.fused_eligible(
+            k, n, max_neighbors, spatial_grid=spatial_grid
+        )
+    # bound the anchor block's candidate tuples (anchors x D^(K-1)) to
+    # about 2M, with at least 8 anchors a block
     dprod = max_neighbors ** (k - 1)
     anchor_chunk = int(min(4096, max(8, (1 << 21) // max(dprod, 1))))
     if use_megakernel:
@@ -117,6 +144,17 @@ def consensus_one(
             max_neighbors=max_neighbors,
             clique_capacity=clique_capacity,
         )
+    elif spatial_grid is not None:
+        cs = enumerate_cliques_bucketed(
+            xy, conf, mask, box_size,
+            threshold=threshold,
+            max_neighbors=max_neighbors,
+            grid=spatial_grid,
+            cell_capacity=cell_capacity,
+            clique_capacity=clique_capacity,
+            anchor_chunk=anchor_chunk,
+            partial_capacity=partial_capacity,
+        )
     else:
         cs = enumerate_cliques(
             xy, conf, mask, box_size,
@@ -125,6 +163,7 @@ def consensus_one(
             use_pallas=use_pallas,
             clique_capacity=clique_capacity,
             anchor_chunk=anchor_chunk,
+            partial_capacity=partial_capacity,
         )
     num_cliques = cs.num_valid
     cs = compact_cliques(cs, clique_capacity)
@@ -147,16 +186,23 @@ def consensus_one(
         valid=cs.valid,
         num_cliques=num_cliques,
         max_adjacency=cs.max_adjacency,
+        max_cell_count=cs.max_cell_count,
+        max_partial=cs.max_partial,
     )
+
+
+def _sizes(xy, box_size) -> torch.Tensor:
+    k = xy.shape[1]
+    return torch.as_tensor(
+        box_size, dtype=xy.dtype, device=xy.device
+    ).reshape(-1).expand(k)
 
 
 def dense_probe(xy, mask, box_size, threshold: float) -> torch.Tensor:
     """Per-micrograph max above-threshold neighbour count over the
     anchor pairs — the first-visit adjacency probe."""
     k = xy.shape[1]
-    sizes = torch.as_tensor(
-        box_size, dtype=xy.dtype, device=xy.device
-    ).reshape(-1).expand(k)
+    sizes = _sizes(xy, box_size)
     thr = torch.tensor(threshold, dtype=xy.dtype, device=xy.device)
     adjs = []
     for p in range(1, k):
@@ -167,10 +213,35 @@ def dense_probe(xy, mask, box_size, threshold: float) -> torch.Tensor:
     return torch.stack(adjs).amax(0)
 
 
-# Last sufficient (max_neighbors, clique_capacity) per workload shape,
-# and the last three observed requirements: a repeat shape skips the
-# probe and runs at the lower median of the recent requirements (in
-# memory only).
+def cell_probe(xy, mask, box_size, grid: int) -> torch.Tensor:
+    """Per-micrograph population of the densest cell over the pickers:
+    one hashing pass at capacity 1 (the count is taken before the
+    capacity cuts), so the main program runs at the exact cell
+    capacity."""
+    cell = _sizes(xy, box_size).amax()
+    return torch.stack([
+        bucket_particles(xy[:, p], mask[:, p], cell, grid=grid,
+                         cell_capacity=1).max_count
+        for p in range(xy.shape[1])
+    ]).amax(0)
+
+
+def spatial_probe(
+    xy, mask, box_size, grid: int, cell_capacity: int, threshold: float
+) -> torch.Tensor:
+    """Per-micrograph max above-threshold neighbour count through the
+    bucketed search at d = 1 (no candidate product)."""
+    _, _, max_adj, _ = bucketed_pair_neighbors(
+        xy, mask, _sizes(xy, box_size), grid=grid,
+        cell_capacity=cell_capacity, threshold=threshold, d=1,
+    )
+    return max_adj
+
+
+# Last sufficient (max_neighbors, clique_capacity, cell_capacity,
+# partial_capacity) per workload shape, and the last three observed
+# requirements: a repeat shape skips the probes and runs at the lower
+# median of the recent requirements (in memory only).
 _LAST_GOOD_CONFIG: dict = {}
 _RECENT_REQUIREMENTS: dict = {}
 
@@ -179,25 +250,34 @@ def _next_bucket(x: int) -> int:
     return bucket_size(int(x), minimum=2)
 
 
-def escalate_capacities(probes, d, cap):
+def escalate_capacities(probes, d, cap, cell_cap, pcap, *, has_grid):
     """Escalate each overflowed capacity straight to the observed
-    requirement.  ``probes`` is ``(max_adjacency, num_cliques)``;
-    returns ``(d, cap, retry)``."""
-    max_adj, n_cliques = (int(v) for v in probes)
+    requirement.  ``probes`` is ``(max_adjacency, num_cliques,
+    max_cell_count, max_partial)``; returns ``(d, cap, cell_cap, pcap,
+    retry)``.  The cell capacity counts only with a grid; the partial
+    capacity escalates apart from the clique capacity."""
+    max_adj, n_cliques, max_cell, max_part = (int(v) for v in probes)
     retry = False
+    if has_grid and max_cell > cell_cap:
+        cell_cap = _next_bucket(max_cell)
+        retry = True
     if max_adj > d:
         d = _next_bucket(max_adj)
         retry = True
     if n_cliques > cap:
         cap = _next_bucket(n_cliques)
         retry = True
-    return d, cap, retry
+    if max_part > pcap:
+        pcap = _next_bucket(max_part)
+        retry = True
+    return d, cap, cell_cap, pcap, retry
 
 
-# Packed-transfer layout: head row (index 0), channels 0..1 hold the
-# two probes as int32 bits in the float32 lanes; body rows (1..C)
-# hold picked, rep_x, rep_y, confidence, rep_slot.
-_HEAD_ADJ, _HEAD_NC = 0, 1
+# Packed-transfer layout: head row (index 0), channels 0..3 hold the
+# four probes as int32 bits in the float32 lanes, in the order of
+# escalate_capacities; body rows (1..C) hold picked, rep_x, rep_y,
+# confidence, rep_slot.
+_HEAD_ADJ, _HEAD_NC, _HEAD_CELL, _HEAD_PART = 0, 1, 2, 3
 _BODY_PICKED, _BODY_X, _BODY_Y, _BODY_CONF, _BODY_SLOT = range(5)
 
 
@@ -216,17 +296,18 @@ def _pack_box_outputs(res: ConsensusResult) -> torch.Tensor:
         dim=-1,
     )
     probes = torch.stack(
-        [res.max_adjacency, res.num_cliques], dim=-1
+        [res.max_adjacency, res.num_cliques, res.max_cell_count,
+         res.max_partial], dim=-1
     ).to(torch.int32).view(f32)
     head = torch.cat(
-        [probes, torch.zeros((m, 3), dtype=f32, device=probes.device)], -1
+        [probes, torch.zeros((m, 1), dtype=f32, device=probes.device)], -1
     )[:, None, :]
     return torch.cat([head, core], dim=1)
 
 
 def _packed_probes(packed: np.ndarray) -> np.ndarray:
-    """(M, 2) int32 per-micrograph probes from the packed head row."""
-    return np.ascontiguousarray(packed[:, 0, :2]).view(np.int32)
+    """(M, 4) int32 per-micrograph probes from the packed head row."""
+    return np.ascontiguousarray(packed[:, 0, :4]).view(np.int32)
 
 
 def _unpack_box_outputs(packed: np.ndarray):
@@ -248,70 +329,106 @@ def run_consensus_batch(
     threshold: float = DEFAULT_THRESHOLD,
     max_neighbors: int = 16,
     clique_capacity: int | None = None,
+    spatial: bool | None = None,
     solver: str = "lp_device",
     use_pallas: bool = False,
     device=None,
 ) -> tuple[ConsensusResult, np.ndarray]:
     """Run consensus on one host batch with automatic escalation.
 
-    Returns ``(result, packed)``: the device result of the accepted
-    attempt and its fetched packed array (probes + everything the BOX
-    writer needs).  A capacity that overflows re-runs the batch at
-    the observed requirement.
+    ``spatial`` selects the bucketed neighbour search; None picks it
+    above :data:`SPATIAL_THRESHOLD` particles per picker, and
+    ``use_pallas`` is then ignored with a warning.  Returns ``(result,
+    packed)``: the device result of the accepted attempt and its
+    fetched packed array (probes + everything the BOX writer needs).
+    A capacity that overflows re-runs the batch at the observed
+    requirement.
     """
     dev = resolve_device(device)
-    if batch.capacity > SPATIAL_THRESHOLD:
-        raise NotImplementedError(
-            f"{batch.capacity} particles per picker selects the spatial "
-            "(bucketed) neighbour search, not ported yet (ROADMAP "
-            "Queue 1 item 7)"
-        )
     cap = clique_capacity or max(4 * batch.capacity, 1024)
+    pcap = cap
     d = max_neighbors
+    if spatial is None:
+        spatial = batch.capacity > SPATIAL_THRESHOLD
+    if spatial and use_pallas:
+        warnings.warn(
+            "the neighbour-search kernel applies to the dense all-pairs "
+            "path only; this batch selected the spatial (bucketed) path "
+            f"— auto-enabled above {SPATIAL_THRESHOLD} particles — so "
+            "--pallas is ignored",
+            stacklevel=2,
+        )
+        use_pallas = False
     sizes = np.asarray(box_size, np.float32)
+    max_size = float(sizes.max())
     box_arg = (
         torch.from_numpy(sizes).to(dev) if sizes.ndim else float(box_size)
     )
-    cfg_key = (batch.xy.shape, tuple(sizes.reshape(-1).tolist()), threshold)
+    grid = None
+    cell_cap = 64
+    cfg_key = (
+        batch.xy.shape, tuple(sizes.reshape(-1).tolist()), threshold,
+        bool(spatial),
+    )
     dbatch = to_device(batch, dev)
     known = _LAST_GOOD_CONFIG.get(cfg_key)
-    if known is None:
+    if spatial:
+        # the padded host batch, zero padding included, sets the grid
+        grid = grid_size(float(np.max(batch.xy)) + max_size, max_size)
+        if known is None:
+            cell = cell_probe(dbatch.xy, dbatch.mask, box_arg, grid)
+            cell_cap = _next_bucket(max(int(cell.max()), 2))
+            adj = spatial_probe(dbatch.xy, dbatch.mask, box_arg, grid,
+                                cell_cap, threshold)
+            d = _next_bucket(max(int(adj.max()), 2))
+    elif known is None:
         adj = dense_probe(dbatch.xy, dbatch.mask, box_arg, threshold)
         d = _next_bucket(max(int(adj.max()), 2))
-    else:
-        d, cap = known
+    if known is not None:
+        d, cap, cell_cap, pcap = known
     while True:
         res = consensus_one(
             dbatch.xy, dbatch.conf, dbatch.mask, box_arg,
             threshold=threshold,
             max_neighbors=d,
             clique_capacity=cap,
+            spatial_grid=grid,
+            cell_capacity=cell_cap,
             solver=solver,
             use_pallas=use_pallas,
+            partial_capacity=pcap,
         )
         packed = _pack_box_outputs(res).cpu().numpy()
         probes = _packed_probes(packed).max(axis=0)
-        d, cap, retry = escalate_capacities(probes, d, cap)
+        d, cap, cell_cap, pcap, retry = escalate_capacities(
+            probes, d, cap, cell_cap, pcap, has_grid=grid is not None
+        )
         if retry:
             continue
         if solver == "lp_device_fused":
             from repic_tpu_torch.ops import megakernel
 
             k, n = batch.xy.shape[1], batch.xy.shape[2]
-            if not megakernel.fused_eligible(k, n, d):
+            if not megakernel.fused_eligible(k, n, d, spatial_grid=grid):
                 megakernel.note_demotion()
-        max_adj, n_cliques = (int(v) for v in probes)
+        # this batch's exact requirement; a probe that means nothing on
+        # this path (no grid, no staged join) keeps the running value
+        max_adj, n_cliques, max_cell, max_part = (int(v) for v in probes)
         req = (
             _next_bucket(max(max_adj, 2)),
             max(_next_bucket(max(n_cliques, 2)), 1024),
+            _next_bucket(max(max_cell, 2)) if grid is not None else cell_cap,
+            _next_bucket(max_part) if max_part > 0 else pcap,
         )
         recent = _RECENT_REQUIREMENTS.setdefault(cfg_key, [])
         recent.append(req)
         del recent[:-3]
         if known is None:
-            _LAST_GOOD_CONFIG[cfg_key] = (d, cap)
+            _LAST_GOOD_CONFIG[cfg_key] = (d, cap, cell_cap, pcap)
             return res, packed
-        by_cost = sorted(recent, key=lambda r: (r[0] * r[1], r))
+        by_cost = sorted(
+            recent, key=lambda r: (r[0] * r[1] * r[2] * r[3], r)
+        )
         _LAST_GOOD_CONFIG[cfg_key] = by_cost[(len(recent) - 1) // 2]
         return res, packed
 
@@ -370,6 +487,7 @@ def run_consensus_dir(
     threshold: float = DEFAULT_THRESHOLD,
     max_neighbors: int = 16,
     num_particles: int | None = None,
+    spatial: bool | None = None,
     solver: str = "lp_device",
     use_pallas: bool = False,
     device=None,
@@ -377,12 +495,10 @@ def run_consensus_dir(
     """Read ``in_dir/<picker>/*.box``, run consensus, write one BOX file
     per micrograph into ``out_dir`` (deleted first if it exists).
     Micrographs missing from a picker, or empty in one, get an empty
-    BOX file.  Returns run statistics."""
+    BOX file.  ``spatial`` as in :func:`run_consensus_batch`, per
+    chunk.  Returns run statistics."""
     if solver not in SOLVERS:
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 9); choose one of {SOLVERS}"
-        )
+        raise NotImplementedError(_UNPORTED_SOLVER.format(solver, SOLVERS))
     dev = resolve_device(device)
     t0 = time.time()
     pickers = box_io.discover_picker_dirs(in_dir)
@@ -409,6 +525,7 @@ def run_consensus_dir(
         "load_s": time.time() - t0,
         "num_cliques": 0,
         "particle_counts": {},
+        "clique_counts": {},
         "chunks": 0,
     }
     if not loaded:
@@ -434,6 +551,7 @@ def run_consensus_dir(
             cbatch, box_size,
             threshold=threshold,
             max_neighbors=max_neighbors,
+            spatial=spatial,
             solver=solver,
             use_pallas=use_pallas,
             device=dev,
@@ -446,7 +564,11 @@ def run_consensus_dir(
         write_s += time.time() - t2
         compute_s += t2 - t1
         stats["particle_counts"].update(counts)
-        stats["num_cliques"] += int(_packed_probes(packed)[:, _HEAD_NC].sum())
+        nc = _packed_probes(packed)[:, _HEAD_NC]
+        stats["clique_counts"].update(
+            (name, int(c)) for name, c in zip(cbatch.names, nc) if name
+        )
+        stats["num_cliques"] += int(nc.sum())
         stats["chunks"] += 1
     stats.update(
         chunk=chunk,

@@ -1,5 +1,6 @@
 """Seeded synthetic inputs: picker directories at EMPIAR-10017
-density, and packings whose rounding candidates nearly tie.
+density, the project's dense-field stress field and k = 5 mixed-size
+ensemble, and packings whose rounding candidates nearly tie.
 
 Each micrograph holds true particles on a jittered grid (about 676 on
 a 3,700-pixel field, spaced wider than an IoU of 0.3 reaches for box
@@ -11,12 +12,16 @@ padded to N = 1024).  Files use the 5-column ``x y w h conf`` format.
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
 
 FIELD = 3700.0
 GRID = 26
+
+#: per-picker box sizes of the k = 5 mixed-size ensemble
+MIXED_SIZES = (180.0, 200.0, 220.0, 160.0, 180.0)
 
 
 def write_synthetic_dir(
@@ -98,3 +103,129 @@ def near_tie_packings(
         mv[b] = np.asarray(rows, np.int32)[order]
         w[b] = np.asarray(ws, np.float32)[order]
     return mv, w, np.ones((n_packings, c), bool), 2 * h
+
+
+def synthesize(m, k, n, seed=0, spacing=150.0, jitter=10.0):
+    """Cluster-structured dense field (the stress configuration): ~n
+    true particles on a grid ``spacing`` apart; each of k pickers
+    reports each particle once with Gaussian jitter.  Returns ``xy (m,
+    k, n, 2)``, ``conf (m, k, n)`` float32 and an all-True mask."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n)))
+    gx, gy = np.meshgrid(np.arange(side), np.arange(side))
+    base = (
+        np.stack([gx, gy], -1).reshape(-1, 2)[:n].astype(np.float32)
+        * spacing
+        + spacing
+    )
+    xy = np.stack(
+        [
+            np.stack(
+                [
+                    base
+                    + rng.normal(0, jitter, base.shape).astype(np.float32)
+                    for _ in range(k)
+                ]
+            )
+            for _ in range(m)
+        ]
+    )  # (m, k, n, 2)
+    conf = rng.uniform(0.05, 1.0, size=(m, k, n)).astype(np.float32)
+    mask = np.ones((m, k, n), bool)
+    return xy, conf, mask
+
+
+def _write_rows(path, xy, conf, box):
+    """``x y box box conf`` rows, as ``f"{x:.2f}"`` etc. would write
+    them, formatted in one ``%`` operation."""
+    values = np.column_stack([xy, conf]).astype(np.float64).ravel()
+    row = f"%.2f\t%.2f\t{box}\t{box}\t%.6f\n"
+    with open(path, "wt") as f:
+        f.write(row * len(conf) % tuple(values.tolist()))
+
+
+def write_stress_dir(
+    out_dir: str, m: int, *, k: int = 4, n: int = 50_000,
+    box_size: int = 180, seed: int = 0,
+) -> None:
+    """The stress field of :func:`synthesize` as BOX files,
+    ``out_dir/picker{p}/mic_{i:04d}.box`` (``x y w h conf``)."""
+    xy, conf, _ = synthesize(m, k, n, seed=seed)
+    for p in range(k):
+        os.makedirs(os.path.join(out_dir, f"picker{p}"), exist_ok=True)
+        for i in range(m):
+            _write_rows(
+                os.path.join(out_dir, f"picker{p}", f"mic_{i:04d}.box"),
+                xy[i, p], conf[i, p], box_size,
+            )
+
+
+def synth_box_tree(
+    dst: str, m: int, k: int, n_per: int, sizes, seed: int = 0
+) -> None:
+    """A k-picker BOX tree (one directory per picker) of ``m``
+    micrographs: ``n_per`` particles uniform on the field, seen by
+    every picker with 15 px of jitter, picker ``p`` at box
+    ``sizes[p]`` (the k = 5 mixed-size ensemble)."""
+    rng = np.random.default_rng(seed)
+    for p in range(k):
+        os.makedirs(os.path.join(dst, f"picker{p}"), exist_ok=True)
+    for i in range(m):
+        base = rng.uniform(200, 3800, size=(n_per, 2)).astype(
+            np.float32
+        )
+        for p in range(k):
+            jitter = rng.normal(0, 15, size=base.shape)
+            conf = rng.uniform(0.05, 1.0, size=n_per)
+            bs = int(sizes[p])
+            with open(
+                os.path.join(dst, f"picker{p}", f"mic_{i:04d}.box"),
+                "wt",
+            ) as f:
+                for (x, y), c in zip(base + jitter, conf):
+                    f.write(f"{x:.2f}\t{y:.2f}\t{bs}\t{bs}\t{c:.6f}\n")
+
+
+#: the project's dense-field and k = 5 configurations as directory
+#: cells: generator, picker count, particles per picker, box size(s)
+CELLS = {
+    # BASELINE.json configs[3]: 50,000 particles x 4 pickers, box 180
+    "stress_50k": dict(
+        box_size=180,
+        write=lambda out, m, seed: write_stress_dir(
+            out, m, k=4, n=50_000, box_size=180, seed=seed),
+    ),
+    # BASELINE.json configs[4]: 5 pickers of mixed box sizes, 700 each
+    "k5_mixed": dict(
+        box_size=np.asarray(MIXED_SIZES, np.float32),
+        write=lambda out, m, seed: synth_box_tree(
+            out, m, 5, 700, MIXED_SIZES, seed=seed),
+    ),
+}
+
+
+def write_cell_dir(cell: str, out_dir: str, m: int, seed: int = 0):
+    """Write ``m`` micrographs of a :data:`CELLS` entry as BOX files;
+    returns the box size to run it with (a scalar, or one per
+    picker)."""
+    c = CELLS[cell]
+    c["write"](out_dir, m, seed)
+    return c["box_size"]
+
+
+def file_sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def tree_sha256(root: str) -> str:
+    """One digest of every file under ``root``: relative paths and
+    contents, in sorted order."""
+    h = hashlib.sha256()
+    for d, subdirs, files in sorted(os.walk(root)):
+        subdirs.sort()
+        for f in sorted(files):
+            path = os.path.join(d, f)
+            h.update(os.path.relpath(path, root).encode() + b"\0")
+            h.update(file_sha256(path).encode())
+    return h.hexdigest()

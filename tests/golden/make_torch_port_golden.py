@@ -11,13 +11,32 @@ BOX files to ``tests/golden/torch_port_10017/<setting>/``:
   mode (``REPIC_TPU_MEGAKERNEL_FORCE=1``);
 * ``greedy``           — the parallel greedy solver.
 
-The card machine has no JAX, so ``chip_smoke.py`` compares the port's
-output with these files; ``tests/test_torch_consensus.py`` holds them
-equal to a live JAX run.  Run from the repository root:
+It also writes digest goldens for the two dense configurations,
+``tests/golden/torch_port_digests.json``: per micrograph the BOX
+file's sha256, its row count and the clique count, for ``lp_device``
+and ``greedy``, over BOX trees that ``repic_tpu_torch.utils.synthetic``
+writes from seed 0 (their digest is recorded too):
+
+* ``stress_50k`` — 2 micrographs of the 50,000-particle, 4-picker
+  field (the spatial path, anchor-chunked assembly);
+* ``k5_mixed``   — 32 micrographs of the 5-picker mixed-size ensemble
+  (the staged join).  The Pallas neighbour search runs in interpret
+  mode here, too slowly for a golden of its own, so the script asserts
+  on its first micrographs that ``lp_device --pallas`` writes the
+  ``lp_device`` bytes; the card holds ``--pallas`` and
+  ``lp_device_fused`` to the ``lp_device`` digests.
+
+Every JAX run is ``use_mesh=False`` with the config cache off, so the
+capacities come from that run alone.  The card machine has no JAX, so
+``chip_smoke.py`` compares the port's output with these files;
+``tests/test_torch_consensus.py`` holds the BOX goldens equal to a
+live JAX run and ``tests/test_torch_staged.py`` the port's CPU run to
+the digests.  Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/golden/make_torch_port_golden.py
 """
 
+import json
 import os
 import shutil
 import sys
@@ -31,6 +50,12 @@ from torch_port_common import GOLDEN_DIR, SETTINGS  # noqa: E402
 
 EXAMPLES = os.path.join(REPO, "examples", "10017")
 BOX_SIZE = 180
+DIGESTS = os.path.join(REPO, "tests", "golden", "torch_port_digests.json")
+#: cell -> micrographs in its digest golden
+DIGEST_MICROGRAPHS = {"stress_50k": 2, "k5_mixed": 32}
+DIGEST_SETTINGS = ("lp_device", "greedy")
+#: k5_mixed micrographs on which --pallas is checked in interpret mode
+PALLAS_CHECK = 2
 
 
 def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
@@ -56,8 +81,84 @@ def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
             os.environ[force] = old
 
 
+def run_jax_dir(in_dir: str, out_dir: str, box_size, solver: str,
+                use_pallas: bool = False) -> dict:
+    """The JAX package's ``run_consensus_dir`` (no mesh, no config
+    cache); returns its clique count per micrograph."""
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    from repic_tpu.pipeline import consensus as jcons
+
+    jcons._LAST_GOOD_CONFIG.clear()
+    jcons._RECENT_REQUIREMENTS.clear()
+    cliques = {}
+    write = jcons.write_consensus_boxes
+
+    def recording(batch, res, *args, **kw):
+        out = write(batch, res, *args, **kw)
+        if kw.get("with_num_cliques"):
+            cliques.update((name, int(c)) for name, c in
+                           zip(batch.names, out[1]) if name)
+        return out
+
+    jcons.write_consensus_boxes = recording
+    try:
+        jcons.run_consensus_dir(in_dir, out_dir, box_size, use_mesh=False,
+                                solver=solver, use_pallas=use_pallas)
+    finally:
+        jcons.write_consensus_boxes = write
+    return cliques
+
+
+def box_digests(out_dir: str, cliques: dict) -> dict:
+    """Per micrograph: BOX sha256, row count and clique count."""
+    from repic_tpu_torch.utils.synthetic import file_sha256
+
+    out = {}
+    for name in sorted(cliques):
+        path = os.path.join(out_dir, name + ".box")
+        with open(path) as f:
+            rows = sum(1 for _ in f)
+        out[name] = {"sha256": file_sha256(path), "rows": rows,
+                     "num_cliques": cliques[name]}
+    return out
+
+
+def make_digests(tmp: str) -> dict:
+    from repic_tpu_torch.utils.synthetic import tree_sha256, write_cell_dir
+
+    golden = {}
+    for cell, m in DIGEST_MICROGRAPHS.items():
+        in_dir = os.path.join(tmp, cell)
+        box = write_cell_dir(cell, in_dir, m)
+        entry = {"micrographs": m, "seed": 0,
+                 "input_sha256": tree_sha256(in_dir), "settings": {}}
+        for setting in DIGEST_SETTINGS:
+            out = os.path.join(tmp, f"{cell}_{setting}")
+            cliques = run_jax_dir(in_dir, out, box, setting)
+            entry["settings"][setting] = box_digests(out, cliques)
+            print(cell, setting, sum(cliques.values()), "cliques")
+        golden[cell] = entry
+    # --pallas in interpret mode on the first k5_mixed micrographs
+    in_dir = os.path.join(tmp, "k5_pallas")
+    box = write_cell_dir("k5_mixed", in_dir, PALLAS_CHECK)
+    got = {}
+    for pallas in (False, True):
+        out = os.path.join(tmp, f"k5_pallas_{pallas}")
+        got[pallas] = box_digests(
+            out, run_jax_dir(in_dir, out, box, "lp_device", pallas))
+    if got[True] != got[False]:
+        raise AssertionError("JAX --pallas differs from lp_device on k5")
+    golden["k5_mixed"]["pallas_checked"] = sorted(got[True])
+    return golden
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        golden = make_digests(tmp)
+        with open(DIGESTS, "w") as f:
+            json.dump(golden, f, indent=1, sort_keys=True)
+            f.write("\n")
     with tempfile.TemporaryDirectory() as tmp:
         for setting in SETTINGS:
             out = os.path.join(tmp, setting)

@@ -114,7 +114,9 @@ def test_import_pulls_in_no_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
-        "assert 'repic_tpu_torch.pipeline.consensus' in new\n"
+        "assert {'repic_tpu_torch.pipeline.consensus',"
+        " 'repic_tpu_torch.ops.spatial',"
+        " 'repic_tpu_torch.utils.synthetic'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu'))\n"
         "print(len(bad), bad[:5])\n"
@@ -185,7 +187,7 @@ def test_cli_on_cpu_matches_jax(jax_outputs, tmp_path):
 
 
 def test_unported_solver_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*item 4"):
         tcons.run_consensus_dir(DATASETS["mini10017"], str(tmp_path), BOX,
                                 solver="exact", device="cpu")
 

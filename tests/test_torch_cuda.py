@@ -264,3 +264,77 @@ def test_card_run_matches_goldens(cuda_device, tmp_path, setting):
         with open(os.path.join(GOLDEN_DIR, setting, f), "rb") as a, \
                 open(tmp_path / f, "rb") as b:
             assert a.read() == b.read(), f
+
+
+_CLIQUE_FIELDS = ("member_idx", "valid", "w", "confidence", "rep_slot",
+                  "rep_xy", "num_valid", "max_adjacency", "max_cell_count",
+                  "max_partial")
+
+
+def _same_cliques(got, want):
+    for f in _CLIQUE_FIELDS:
+        np.testing.assert_array_equal(n(getattr(got, f)),
+                                      n(getattr(want, f)), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("assembly", ["chunked", "staged"])
+def test_bucketed_enumeration_on_card_matches_cpu(cuda_device, assembly):
+    """The spatial search and the chunked / staged assemblies are torch
+    ops: the card gives the CPU's bits (mixed box sizes, K = 5)."""
+    from repic_tpu_torch.ops import cliques as tc
+
+    items = [clique_inputs(5, 60, seed=s) for s in (1, 2)]
+    arrays = [np.stack([it[j] for it in items]) for j in range(3)]
+    sizes = np.asarray([180.0, 200.0, 220.0, 160.0, 180.0], np.float32)
+    kw = dict(max_neighbors=6 if assembly == "staged" else 3, grid=8,
+              cell_capacity=8, clique_capacity=4096, anchor_chunk=16)
+    got = tc.enumerate_cliques_bucketed(
+        *[t(a, cuda_device) for a in arrays], t(sizes, cuda_device), **kw)
+    want = tc.enumerate_cliques_bucketed(*[t(a) for a in arrays], sizes,
+                                         **kw)
+    _same_cliques(got, want)
+    assert (int(want.max_partial.max()) > 0) == (assembly == "staged")
+
+
+@pytest.mark.cuda
+def test_staged_join_with_kernel_1_per_picker_sizes(cuda_device):
+    """K = 5 with per-picker sizes on the card: the staged join takes
+    kernel 1's lists (one launch) and gives the plain matrix path's
+    cliques."""
+    from repic_tpu_torch.ops import cliques as tc
+
+    items = [clique_inputs(5, 60, seed=s) for s in (3, 4)]
+    arrays = [t(np.stack([it[j] for it in items]), cuda_device)
+              for j in range(3)]
+    sizes = t(np.asarray([180.0, 200.0, 220.0, 160.0, 180.0], np.float32),
+              cuda_device)
+    kw = dict(max_neighbors=6, clique_capacity=4096)
+    before = tk.LAUNCHES
+    got = tc.enumerate_cliques(*arrays, sizes, use_pallas=True, **kw)
+    assert tk.LAUNCHES == before + 1
+    want = tc.enumerate_cliques(*arrays, sizes, **kw)
+    _same_cliques(got, want)
+    assert int(want.max_partial.max()) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_1_serves_d_past_the_reference_cap(cuda_device):
+    """256 < d <= MAX_D: the clique enumeration keeps kernel 1 (one
+    launch, no warning) and gives its plain version's cliques."""
+    import warnings
+
+    from repic_tpu_torch.ops import cliques as tc
+
+    xy, conf, mask = clique_inputs(2, 320, seed=5)
+    kw = dict(max_neighbors=300)
+    before = tk.LAUNCHES
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = tc.enumerate_cliques(
+            *[t(a, cuda_device)[None] for a in (xy, conf, mask)], BOX,
+            use_pallas=True, **kw)
+    assert tk.LAUNCHES == before + 1
+    want = tc.enumerate_cliques(*[t(a)[None] for a in (xy, conf, mask)],
+                                BOX, use_pallas=True, **kw)
+    _same_cliques(got, want)

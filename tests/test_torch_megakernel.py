@@ -199,3 +199,11 @@ def test_fused_consensus_one_matches_staged():
                                  solver="lp_device", **kw)
     assert int(n(staged.picked).sum()) > 0
     _assert_results_equal(fused, staged)
+
+
+def test_envelope_rules_out_a_spatial_grid():
+    """The bucketed neighbour search is outside the fused envelope."""
+    for args in ((3, 1024, 16), (2, 64, 4)):
+        assert not tmk.fused_eligible(*args, spatial_grid=32)
+        assert not jmk.fused_eligible(*args, spatial_grid=32)
+        assert tmk.fused_eligible(*args, spatial_grid=None)
