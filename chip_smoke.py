@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6 and 7, print the ``{"kernels": [...]}`` line
+5. after phases 6, 7 and 8, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -57,7 +57,22 @@ Phases, each fatal on failure:
    1 at this chunk's shape (M = 16, K = 5, N = 768, the accepted d, the
    per-picker sizes as device views) against its plain version, with
    its time, device time and bound; then a warm pass over the
-   configuration's :data:`K5_WARM` = 1,024 micrographs.
+   configuration's :data:`K5_WARM` = 1,024 micrographs;
+8. the rest of the flags, through the CLI's parser and commands in this
+   process (the escalation memo cleared and the launch counts set to 0
+   before each run), each output file held to the JAX digests
+   (``tests/golden/torch_port_flags_digests.json``): ``consensus
+   --multi_out``, ``--get_cc`` and both on 10017 under ``lp_device``,
+   ``lp_device --pallas`` (kernel 1 must launch) and
+   ``lp_device_fused`` (kernels 2 and 3 must launch, no chunk
+   demoted); ``--solver exact`` and ``--solver lp``; ``get_cliques``
+   (plain, ``--multi_out``, ``--get_cc``; pickles by content) then
+   ``run_ilp`` with each backend; ``--stripes 4`` on the two
+   ``stress_50k`` golden micrographs under ``lp_device`` and ``lp``,
+   with each micrograph's seconds, stripe capacity, accepted
+   capacities and the peak device memory; last, the seconds to read
+   the synthetic and stress BOX files with the native parser and with
+   the line loop.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -87,6 +102,8 @@ BOX = 180
 CHUNK = 32
 N_SYNTH = 256
 DIGESTS = os.path.join(REPO, "tests", "golden", "torch_port_digests.json")
+FLAG_DIGESTS = os.path.join(REPO, "tests", "golden",
+                            "torch_port_flags_digests.json")
 #: micrographs in the warm passes of the two dense configurations
 #: (each configuration's full count)
 STRESS_WARM = 128
@@ -589,6 +606,164 @@ def phase_k5(golden):
     return runs
 
 
+# -- phase 8: the tables, the lp and exact rungs, two phases, stripes --
+
+
+def cli(*argv):
+    """``python -m repic_tpu_torch ARGV`` in this process (its parser
+    and command), with the escalation memo cleared as a new process has
+    it and the launch counts set to 0 just before; returns ``(stats or
+    None, wall_s, counts)`` (stats: the consensus command's JSON line)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repic_tpu_torch import main as cli_main
+
+    clear_memo()
+    reset_counts()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    if rc != 0:
+        raise RuntimeError(f"CLI {argv} exited {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    stats = None
+    if argv[0] == "consensus":
+        stats = json.loads(lines[-1])
+    return stats, wall, read_counts()
+
+
+def check_outputs(label, out_dir, want, exts=(".box", ".tsv")):
+    """Every output file's digest equals the JAX golden's."""
+    from repic_tpu_torch.utils.synthetic import output_digests
+
+    got = output_digests(out_dir, exts)
+    if got != want:
+        bad = sorted(f for f in set(got) | set(want)
+                     if got.get(f) != want.get(f))
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} files "
+                             f"differ from the JAX digests: {bad[:4]}")
+
+
+def load_times(src):
+    """Seconds to read every BOX file under ``src`` with the native
+    parser (``read_box``) and with the line loop, and the file count."""
+    from repic_tpu_torch.utils import box_io
+
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(src)
+                   for f in fs if f.endswith(".box"))
+    t = time.time()
+    for f in files:
+        box_io.read_box(f)
+    native_s = time.time() - t
+    t = time.time()
+    for f in files:
+        box_io._read_box_slow(f)
+    return {"files": len(files), "native_s": native_s,
+            "line_loop_s": time.time() - t}
+
+
+def phase_flags(synth):
+    """Phase 8, through the CLI on the card: the 10017 tables under
+    lp_device, lp_device --pallas and lp_device_fused (kernels 1, 2 and
+    3 must launch, no chunk demoted); --solver exact and lp; get_cliques
+    + run_ilp with each backend; --stripes 4 on the stress_50k golden
+    micrographs; and the native BOX parser's read times."""
+    import torch
+
+    with open(FLAG_DIGESTS) as f:
+        gold = json.load(f)
+    rep = {"tables": {}, "solvers": {}, "two_phase": {}, "stripes": {}}
+    tables_launches = {}
+    flag_args = {"multi_out": ["--multi_out"], "get_cc": ["--get_cc"],
+                 "multi_out_get_cc": ["--multi_out", "--get_cc"]}
+    for key, want in sorted(gold["tables"].items()):
+        setting, flags = key.split("/")
+        solver = "lp_device_fused" if setting.endswith("fused") \
+            else "lp_device"
+        extra = ["--pallas"] if setting.endswith("pallas") else []
+        out = os.path.join(WORK, "t_" + key.replace("/", "_"))
+        st, wall, counts = cli("consensus", EXAMPLES, out, BOX, "--solver",
+                               solver, *extra, *flag_args[flags])
+        check_outputs(f"10017 {key}", out, want)
+        need = (["topk_neighbors"] if extra else
+                ["fused_clique_candidates", "fused_dual_solve"]
+                if solver == "lp_device_fused" else [])
+        for k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"{key}: {k} never launched")
+            tables_launches.setdefault(k, {})[key] = counts[k]
+        if counts["demotions"]:
+            raise AssertionError(f"{key}: {counts['demotions']} demotions")
+        rep["tables"][key] = {"wall_s": wall, "compute_s": st["compute_s"],
+                              "launches": counts,
+                              "cc_rounds": st.get("cc_rounds")}
+        log(f"phase 8: 10017 {key}: {len(want)} files equal the JAX "
+            f"digests; wall {wall:.3f}s, compute {st['compute_s']:.3f}s, "
+            f"launches {counts}, cc rounds {st.get('cc_rounds')}")
+    for solver, want in sorted(gold["solvers"].items()):
+        out = os.path.join(WORK, "s_" + solver)
+        st, wall, _ = cli("consensus", EXAMPLES, out, BOX, "--solver", solver)
+        check_outputs(f"10017 --solver {solver}", out, want)
+        rungs = st.get("solver_rungs", {})
+        if solver == "exact" and set(rungs.values()) != {"exact"}:
+            raise AssertionError(f"exact rungs {rungs}")
+        rep["solvers"][solver] = {"wall_s": wall,
+                                  "compute_s": st["compute_s"]}
+        log(f"phase 8: 10017 --solver {solver}: {len(want)} BOX files equal "
+            f"the JAX digests; wall {wall:.3f}s, compute "
+            f"{st['compute_s']:.3f}s")
+    gc_args = {"plain": [], "multi_out": ["--multi_out"],
+               "get_cc": ["--get_cc"]}
+    for flags, want in sorted(gold["two_phase"].items()):
+        out = os.path.join(WORK, "p_" + flags)
+        _, wall, _ = cli("get_cliques", EXAMPLES, out, BOX, *gc_args[flags])
+        check_outputs(f"get_cliques {flags}", out, want["get_cliques"],
+                      (".pickle", "_runtime.tsv"))
+        walls = {"get_cliques": wall}
+        for backend in ("exact", "greedy", "lp"):
+            _, walls[backend], _ = cli("run_ilp", out, BOX, "--backend",
+                                       backend)
+            check_outputs(f"run_ilp {flags} {backend}", out, want[backend])
+        rep["two_phase"][flags] = walls
+        log(f"phase 8: get_cliques {flags} + run_ilp exact/greedy/lp equal "
+            "the JAX digests; wall " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in walls.items()))
+    g = gold["stripes"]
+    src, box = golden_input(g["cell"], g)
+    for solver, want in sorted(g["settings"].items()):
+        out = os.path.join(WORK, "g_" + solver)
+        torch.cuda.reset_peak_memory_stats()
+        st, wall, _ = cli("consensus", src, out, box, "--solver", solver,
+                          "--stripes", g["stripes"])
+        peak = torch.cuda.max_memory_allocated()
+        check_outputs(f"stress_50k --stripes {g['stripes']} {solver}", out,
+                      want)
+        rep["stripes"][solver] = {"wall_s": wall, "giant": st["giant"],
+                                  "peak_device_bytes": peak}
+        log(f"phase 8: stress_50k --stripes {g['stripes']} {solver}: "
+            f"{g['micrographs']} BOX files equal the JAX digests; wall "
+            f"{wall:.2f}s, peak device memory {peak / 2**30:.2f} GiB")
+        for name, gs in st["giant"].items():
+            log(f"  {name}: {gs['seconds']:.3f}s, stripe capacity "
+                f"{gs['stripe_capacity']}, (d, cap, cell_cap, pcap) = "
+                f"{gs['config']}")
+    rep["load"] = {"synthetic_256": load_times(synth),
+                   "stress_50k": load_times(src)}
+    for cell, lt in rep["load"].items():
+        log(f"phase 8: reading {cell}'s {lt['files']} BOX files: native "
+            f"parser {lt['native_s']:.3f}s, line loop "
+            f"{lt['line_loop_s']:.3f}s")
+    rep["tables_launches"] = tables_launches
+    return rep
+
+
 def main() -> int:
     import torch
 
@@ -924,6 +1099,9 @@ def main() -> int:
     stress = phase_stress(golden)
     k5 = phase_k5(golden)
 
+    # -- phase 8: the flags, the rungs, the two-phase CLI, stripes ----
+    phase8 = phase_flags(synth)
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -946,10 +1124,14 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
     kernels[0]["k5_chunk"] = k5["k5_chunk"]
+    for entry in kernels:
+        # launches on phase 8's 10017 tables runs, per run
+        entry["tables_launches"] = phase8["tables_launches"].get(
+            entry["name"], {})
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
-              "stress_50k": stress, "k5_mixed": k5}
+              "stress_50k": stress, "k5_mixed": k5, "phase8": phase8}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

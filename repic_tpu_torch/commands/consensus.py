@@ -1,12 +1,24 @@
 """Directory consensus on one device.
 
 Reads ``IN_DIR/<picker>/*.box``, writes one consensus BOX file per
-micrograph into ``OUT_DIR`` (deleted first if it exists) and prints
-the run statistics as one JSON line.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+micrograph into ``OUT_DIR`` (deleted first if it exists) — or, with
+``--multi_out``, one per-picker TSV — and prints the run statistics
+as one JSON line.  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
+import argparse
 import json
+
+
+def _stripes_arg(value):
+    if value == "auto":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {value!r}"
+        ) from None
 
 
 def add_arguments(parser):
@@ -18,11 +30,42 @@ def add_arguments(parser):
     )
     parser.add_argument("box_size", type=int, help="box size (pixels)")
     parser.add_argument(
+        "--multi_out",
+        action="store_true",
+        help="write per-picker TSVs (clique members in picker columns, "
+        "then the unchosen particles as confidence-0 rows) instead of "
+        "BOX files, as get_cliques --multi_out + run_ilp do",
+    )
+    parser.add_argument(
+        "--get_cc",
+        action="store_true",
+        help="keep only cliques in the largest connected component",
+    )
+    parser.add_argument(
         "--solver",
-        choices=["lp_device", "lp_device_fused", "greedy"],
+        choices=["greedy", "lp", "lp_device", "lp_device_fused", "exact"],
         default="lp_device",
-        help="packing solver: dual-decomposition LP (default), the "
-        "fused CUDA chunk program, or parallel greedy",
+        help="packing solver: dual-decomposition LP on the device "
+        "(default), the fused CUDA chunk program, parallel greedy, LP "
+        "relaxation + rounding, or the exact host branch-and-bound "
+        "(degrading exact -> lp -> greedy under --solver_budget)",
+    )
+    parser.add_argument(
+        "--solver_budget",
+        type=float,
+        metavar="SECONDS",
+        help="wall-clock budget per exact solve; on exhaustion the "
+        "solver ladder degrades to LP rounding, then greedy (requires "
+        "--solver exact)",
+    )
+    parser.add_argument(
+        "--stripes",
+        type=_stripes_arg,
+        metavar="S",
+        help="split each micrograph into S x-stripes with a box-size "
+        "halo, enumerate them as one batch and solve globally (same "
+        "output as unstriped); 'auto' stripes only with fewer "
+        "micrographs than devices, which never holds on one card",
     )
     parser.add_argument(
         "--pallas",
@@ -58,6 +101,12 @@ def main(args):
     from repic_tpu_torch.ops import iou_pallas, megakernel
     from repic_tpu_torch.pipeline.consensus import run_consensus_dir
 
+    if args.solver_budget is not None and args.solver != "exact":
+        raise SystemExit(
+            "consensus: error: --solver_budget requires --solver exact "
+            "(the device greedy/lp packers take no budget)"
+        )
+
     stats = run_consensus_dir(
         args.in_dir,
         args.out_dir,
@@ -68,6 +117,10 @@ def main(args):
         spatial={"auto": None, "on": True, "off": False}[args.spatial],
         solver=args.solver,
         use_pallas=args.pallas,
+        multi_out=args.multi_out,
+        get_cc=args.get_cc,
+        stripes=args.stripes,
+        solver_budget_s=args.solver_budget,
         device=args.device,
     )
     stats["launches"] = {

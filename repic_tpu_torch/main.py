@@ -1,8 +1,9 @@
 """``python -m repic_tpu_torch`` CLI dispatcher.
 
 Each command module exposes ``add_arguments(parser)`` and
-``main(args)``, as in ``repic_tpu``.  This slice of the port has one
-subcommand, ``consensus``.
+``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
+directory consensus) and the two-phase pair ``get_cliques`` +
+``run_ilp``.
 """
 
 import argparse
@@ -13,6 +14,8 @@ import repic_tpu_torch
 
 COMMANDS = {
     "consensus": "repic_tpu_torch.commands.consensus",
+    "get_cliques": "repic_tpu_torch.commands.get_cliques",
+    "run_ilp": "repic_tpu_torch.commands.run_ilp",
 }
 
 

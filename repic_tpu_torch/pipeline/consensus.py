@@ -19,9 +19,17 @@ product as :func:`~repic_tpu_torch.ops.cliques.enumerate_cliques`
 chooses.  ``solver="lp_device_fused"`` takes kernels 2 and 3 when the
 configuration is inside the fused envelope and demotes statically to
 the staged ``lp_device`` program otherwise; ``use_pallas`` takes
-kernel 1 for the dense neighbour search.  The journal, resume,
-cluster, gang, striped and telemetry layers of the reference are not
-ported yet.
+kernel 1 for the dense neighbour search.  ``solver="lp"`` rounds an
+LP relaxation on the device; ``solver="exact"`` runs the greedy
+program, fetches the whole result and re-solves each micrograph on
+the host ladder (:mod:`repic_tpu_torch.runtime.ladder`).
+
+``multi_out`` / ``get_cc`` write the tables of the two-phase
+``get_cliques`` + ``run_ilp`` pair (:func:`write_consensus_tables`)
+from one fetch of the whole result per chunk; ``stripes`` splits each
+micrograph into x-stripes (:mod:`repic_tpu_torch.pipeline.giant`).
+The journal, resume, cluster, gang and telemetry layers of the
+reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +50,11 @@ from repic_tpu_torch.ops.cliques import (
     enumerate_cliques_bucketed,
 )
 from repic_tpu_torch.ops.iou import pairwise_iou_matrix
-from repic_tpu_torch.ops.solver import pack_cliques_for_solver, solve_greedy
+from repic_tpu_torch.ops.solver import (
+    pack_cliques_for_solver,
+    solve_greedy,
+    solve_lp_rounding,
+)
 from repic_tpu_torch.ops.spatial import (
     bucket_particles,
     bucketed_pair_neighbors,
@@ -57,12 +69,10 @@ from repic_tpu_torch.parallel.batching import (
 from repic_tpu_torch.solver.dual import solve_lp_device
 from repic_tpu_torch.utils import box_io
 
-SOLVERS = ("lp_device", "lp_device_fused", "greedy")
-
-_UNPORTED_SOLVER = (
-    "solver {!r} is not ported yet (ROADMAP Queue 1 item 4: the lp "
-    "and exact rungs); choose one of {}"
-)
+SOLVERS = ("greedy", "lp", "lp_device", "lp_device_fused", "exact")
+#: the solvers that run inside the device program ("exact" runs the
+#: greedy program and re-solves on the host)
+DEVICE_SOLVERS = ("greedy", "lp", "lp_device", "lp_device_fused")
 
 #: particles per picker above which the reference switches to its
 #: spatial (bucketed) neighbour search
@@ -116,15 +126,19 @@ def consensus_one(
         box_size: scalar or ``(K,)`` box edges.
         spatial_grid: grid edge G of the bucketed neighbour search
             (``cell_capacity`` slots per cell); None runs the dense one.
-        solver: ``"lp_device"`` (dual decomposition), ``"greedy"``, or
-            ``"lp_device_fused"`` (kernels 2 and 3 inside the fused
-            envelope, the staged ``lp_device`` program outside it).
+        solver: ``"lp_device"`` (dual decomposition), ``"lp"`` (LP
+            rounding), ``"greedy"``, or ``"lp_device_fused"`` (kernels
+            2 and 3 inside the fused envelope, the staged
+            ``lp_device`` program outside it).
         use_pallas: dense neighbour search through kernel 1.
         partial_capacity: rows of the staged join's buffers (default
             ``clique_capacity``).
     """
-    if solver not in SOLVERS:
-        raise NotImplementedError(_UNPORTED_SOLVER.format(solver, SOLVERS))
+    if solver not in DEVICE_SOLVERS:
+        raise ValueError(
+            f"unknown device solver {solver!r}; choose one of "
+            f"{DEVICE_SOLVERS}"
+        )
     _, k, n, _ = xy.shape
     use_megakernel = False
     if solver == "lp_device_fused":
@@ -174,6 +188,8 @@ def consensus_one(
         )
     elif solver in ("lp_device", "lp_device_fused"):
         picked = solve_lp_device(vid, cs.w, cs.valid, num_vertices)
+    elif solver == "lp":
+        picked = solve_lp_rounding(vid, cs.w, cs.valid, num_vertices)
     else:
         picked = solve_greedy(vid, cs.w, cs.valid, num_vertices)
     return ConsensusResult(
@@ -322,6 +338,61 @@ def _unpack_box_outputs(packed: np.ndarray):
     )
 
 
+def _pack_full_result(res: ConsensusResult) -> torch.Tensor:
+    """The whole result and the probes as one ``(M, C+1, K+7)``
+    float32 tensor, so a chunk on the tables path costs one fetch.
+    Body channels: the K member ids (int32 bits), rep_x, rep_y, w,
+    confidence, rep_slot (int32 bits), picked, valid.  Head row,
+    channels 0..3: the probes as in :func:`_pack_box_outputs`."""
+    m, _, k = res.member_idx.shape
+    f32 = torch.float32
+
+    def bits(x):
+        return x.to(torch.int32).view(f32)
+
+    body = torch.cat(
+        [
+            bits(res.member_idx),
+            res.rep_xy.to(f32),
+            res.w.to(f32)[..., None],
+            res.confidence.to(f32)[..., None],
+            bits(res.rep_slot)[..., None],
+            res.picked.to(f32)[..., None],
+            res.valid.to(f32)[..., None],
+        ],
+        dim=-1,
+    )
+    probes = bits(torch.stack(
+        [res.max_adjacency, res.num_cliques, res.max_cell_count,
+         res.max_partial], dim=-1
+    ))
+    head = torch.cat(
+        [probes, torch.zeros((m, k + 3), dtype=f32, device=body.device)],
+        -1,
+    )[:, None, :]
+    return torch.cat([head, body], dim=1)
+
+
+def _unpack_full_result(packed: np.ndarray, k: int) -> ConsensusResult:
+    """A host :class:`ConsensusResult` of numpy arrays from one fetched
+    :func:`_pack_full_result` array."""
+    head = _packed_probes(packed)
+    body = packed[:, 1:, :]
+    return ConsensusResult(
+        rep_xy=body[:, :, k : k + 2],
+        confidence=body[:, :, k + 3],
+        w=body[:, :, k + 2],
+        member_idx=np.ascontiguousarray(body[:, :, :k]).view(np.int32),
+        rep_slot=np.ascontiguousarray(body[:, :, k + 4]).view(np.int32),
+        picked=body[:, :, k + 5] > 0.5,
+        valid=body[:, :, k + 6] > 0.5,
+        num_cliques=head[:, _HEAD_NC],
+        max_adjacency=head[:, _HEAD_ADJ],
+        max_cell_count=head[:, _HEAD_CELL],
+        max_partial=head[:, _HEAD_PART],
+    )
+
+
 def run_consensus_batch(
     batch: PaddedBatch,
     box_size,
@@ -333,6 +404,7 @@ def run_consensus_batch(
     solver: str = "lp_device",
     use_pallas: bool = False,
     device=None,
+    full: bool = False,
 ) -> tuple[ConsensusResult, np.ndarray]:
     """Run consensus on one host batch with automatic escalation.
 
@@ -340,7 +412,8 @@ def run_consensus_batch(
     above :data:`SPATIAL_THRESHOLD` particles per picker, and
     ``use_pallas`` is then ignored with a warning.  Returns ``(result,
     packed)``: the device result of the accepted attempt and its
-    fetched packed array (probes + everything the BOX writer needs).
+    fetched packed array — probes + everything the BOX writer needs,
+    or with ``full`` the whole result (:func:`_pack_full_result`).
     A capacity that overflows re-runs the batch at the observed
     requirement.
     """
@@ -398,7 +471,8 @@ def run_consensus_batch(
             use_pallas=use_pallas,
             partial_capacity=pcap,
         )
-        packed = _pack_box_outputs(res).cpu().numpy()
+        pack = _pack_full_result if full else _pack_box_outputs
+        packed = pack(res).cpu().numpy()
         probes = _packed_probes(packed).max(axis=0)
         d, cap, cell_cap, pcap, retry = escalate_capacities(
             probes, d, cap, cell_cap, pcap, has_grid=grid is not None
@@ -479,6 +553,264 @@ def _auto_chunk(n_loaded: int, k: int, nb: int) -> int:
     return min(c, max(n_loaded, 1))
 
 
+def iter_consensus_chunks(
+    loaded,
+    box_size,
+    *,
+    info: dict | None = None,
+    **kwargs,
+):
+    """Run :func:`run_consensus_batch` over memory-bounded chunks of
+    ``loaded`` (``(name, sets)`` pairs, all with the same pickers).
+
+    Yields ``(part, batch, packed, seconds)`` per chunk: the chunk's
+    pairs, its padded host batch (rows in ``part`` order), the fetched
+    packed array and the seconds the device program and its fetch
+    took.  ``kwargs`` go to :func:`run_consensus_batch`; ``info``
+    receives the chunk size and the particle capacity."""
+    k = len(loaded[0][1])
+    nb = bucket_size(max(bs.n for _, sets in loaded for bs in sets))
+    chunk = _auto_chunk(len(loaded), k, nb)
+    if info is not None:
+        info.update(chunk=chunk, capacity=nb)
+    for i in range(0, len(loaded), chunk):
+        part = loaded[i : i + chunk]
+        single = chunk >= len(loaded)
+        cbatch = pad_batch(
+            part, pad_micrographs_to=1 if single else chunk, capacity=nb
+        )
+        t = time.time()
+        _res, packed = run_consensus_batch(cbatch, box_size, **kwargs)
+        yield part, cbatch, packed, time.time() - t
+
+
+def _write_box_file(out_path, rep_xy, conf, rep_slot, box_size,
+                    num_particles) -> int:
+    """One micrograph's BOX file from selected rows (each row with its
+    representative's box size when sizes are per picker); returns the
+    written row count."""
+    sizes = np.asarray(box_size)
+    row_sizes = sizes[rep_slot] if sizes.ndim else box_size
+    box_io.write_box(out_path, rep_xy, conf, row_sizes,
+                     num_particles=num_particles)
+    n = len(rep_xy)
+    return n if num_particles is None else min(n, num_particles)
+
+
+def _cc_keep_mask(member_idx, labels, node_mask):
+    """Cliques inside the largest connected component: a clique's
+    members share a component, so its anchor member's label decides."""
+    from repic_tpu_torch.ops.components import largest_component_label
+
+    keep_label = largest_component_label(labels, node_mask)
+    return np.asarray(labels)[0, member_idx[:, 0]] == keep_label
+
+
+def write_consensus_tables(
+    part,
+    res: ConsensusResult,
+    cc,
+    out_dir: str,
+    box_size,
+    pickers,
+    *,
+    multi_out: bool = False,
+    get_cc: bool = False,
+    num_particles: int | None = None,
+) -> dict[str, int]:
+    """The ``--multi_out`` / ``--get_cc`` outputs of one fetched chunk,
+    equal to what ``get_cliques`` + ``run_ilp`` write for the same
+    flags.
+
+    * ``multi_out``: ``{name}.tsv`` — a header of picker names, one
+      row per chosen clique with each picker's member coordinates,
+      then every particle not in a chosen clique as a confidence-0
+      singleton row (per picker, sorted by x, y, index).
+    * ``get_cc``: only the cliques inside the largest connected
+      component.  Applied to the picks: the packing decomposes over
+      components, so solve-then-filter equals filter-then-solve.
+    * neither: the BOX file of the picks (the ``exact`` solver's
+      output).
+
+    ``res`` is a host result (:func:`_unpack_full_result`), ``cc``
+    the host ``(labels, node_mask)`` when ``get_cc``, and ``part`` the
+    chunk's ``(name, sets)`` list in batch-row order.
+    """
+    counts: dict[str, int] = {}
+    labels_b, node_mask_b = cc if cc is not None else (None, None)
+    for i, (name, sets) in enumerate(part):
+        k = len(sets)
+        valid = res.valid[i]
+        member_idx = res.member_idx[i][valid]
+        conf = res.confidence[i][valid]
+        picked = res.picked[i][valid]
+        rep_xy = res.rep_xy[i][valid]
+        rep_slot = res.rep_slot[i][valid]
+        if get_cc:
+            keep = _cc_keep_mask(member_idx, labels_b[i], node_mask_b[i])
+            member_idx, conf, picked = (
+                member_idx[keep], conf[keep], picked[keep]
+            )
+            rep_xy, rep_slot = rep_xy[keep], rep_slot[keep]
+        chosen = np.where(picked)[0]
+        if not multi_out:
+            counts[name] = _write_box_file(
+                os.path.join(out_dir, name + ".box"),
+                rep_xy[chosen], conf[chosen], rep_slot[chosen],
+                box_size, num_particles,
+            )
+            continue
+        # chosen cliques in buffer order, then per picker the
+        # particles of the (filtered) universe outside them, sorted by
+        # (x, y, index): run_ilp sorts (x, y, id) tuples and the id
+        # grows with the index inside a picker
+        node_int = np.rint(
+            np.stack(
+                [sets[p].xy[member_idx[chosen, p]] for p in range(k)],
+                axis=1,
+            )
+        ).astype(np.int64) if len(chosen) else np.zeros(
+            (0, k, 2), np.int64
+        )
+        rows = [
+            "\t".join(map(str, node_int[c].ravel()))
+            + "\t" + str(float(conf[i_c]))
+            for c, i_c in enumerate(chosen)
+        ]
+        for p in range(k):
+            universe = (
+                np.unique(member_idx[:, p]) if get_cc
+                else np.arange(sets[p].n)
+            )
+            covered = (
+                np.unique(member_idx[chosen, p]) if len(chosen)
+                else np.empty(0, np.int64)
+            )
+            extras = np.setdiff1d(universe, covered)
+            xy_e = sets[p].xy[extras]
+            order = np.lexsort((extras, xy_e[:, 1], xy_e[:, 0]))
+            for x, y in np.rint(xy_e[order]).astype(np.int64):
+                cells = ["N/A\tN/A"] * k
+                cells[p] = f"{x}\t{y}"
+                rows.append("\t".join(cells) + "\t0.0")
+        with box_io.atomic_write(os.path.join(out_dir, name + ".tsv")) as o:
+            o.write("\t".join(pickers) + "\n")
+            o.write("\n".join(rows))
+        counts[name] = len(chosen)
+    return counts
+
+
+def _host_solve_chunk(part, res, capacity, *, budget_s, rungs, device):
+    """Re-solve each micrograph of a fetched chunk on the host ladder
+    (exact, under ``budget_s`` degrading to lp and greedy); ``rungs``
+    receives the rung that solved each.  Returns ``res`` with the
+    ladder's picks."""
+    from repic_tpu_torch.runtime.ladder import solve_host_ladder
+
+    picked_all = np.array(res.picked, dtype=bool)
+    k = res.member_idx.shape[-1]
+    offsets = np.arange(k, dtype=np.int64) * int(capacity)
+    for i, (name, _sets) in enumerate(part):
+        valid = res.valid[i]
+        member = res.member_idx[i][valid].astype(np.int64)
+        vid = member + offsets[None, :] if member.size else member
+        picked_v, used = solve_host_ladder(
+            vid, res.w[i][valid], k * int(capacity),
+            solver="exact", budget_s=budget_s, device=device,
+        )
+        row = np.zeros(picked_all.shape[1], bool)
+        row[np.where(valid)[0]] = picked_v
+        picked_all[i] = row
+        rungs[name] = used
+    return res._replace(picked=picked_all)
+
+
+def cc_labels_host(batch: PaddedBatch, box_size, threshold: float,
+                   device):
+    """The chunk's component labels and node mask on ``device``,
+    fetched in one copy (labels -1 where a particle is no node); also
+    the propagation rounds run."""
+    from repic_tpu_torch.ops.components import connected_component_labels
+
+    dbatch = to_device(batch, device)
+    labels, node_mask, rounds = connected_component_labels(
+        dbatch.xy, dbatch.mask, box_size, threshold=threshold
+    )
+    lab = torch.where(node_mask, labels, torch.full_like(labels, -1))
+    lab = lab.cpu().numpy()
+    return (lab, lab >= 0), rounds
+
+
+def _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
+                 use_pallas) -> None:
+    """Reject a bad flag combination before anything is deleted."""
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; choose one of "
+                         f"{SOLVERS}")
+    if solver_budget_s is not None and solver != "exact":
+        raise ValueError(
+            "solver_budget_s applies to solver='exact' only (the "
+            "device greedy/lp packers take no budget)"
+        )
+    if stripes is None or stripes == "auto":
+        return
+    if multi_out or get_cc:
+        raise ValueError(
+            "--stripes composes with the plain BOX output only "
+            "(use the batched path for --multi_out/--get_cc)"
+        )
+    if solver == "exact":
+        raise ValueError(
+            "--solver exact composes with the batched path only "
+            "(not --stripes)"
+        )
+    if stripes < 1:
+        raise ValueError(f"--stripes must be >= 1, got {stripes}")
+    if use_pallas:
+        warnings.warn(
+            "--pallas applies to the batched dense path only; the "
+            "striped (--stripes) path uses the bucketed/dense search "
+            "without the kernel",
+            stacklevel=3,
+        )
+
+
+def _run_striped(loaded, out_dir, box_size, stripes, stats, *, threshold,
+                 max_neighbors, num_particles, spatial, solver, dev):
+    """The striped branch: each micrograph alone through
+    :func:`~repic_tpu_torch.pipeline.giant.run_consensus_giant`."""
+    from repic_tpu_torch.pipeline.giant import run_consensus_giant
+
+    compute_s = write_s = 0.0
+    giant_stats = {}
+    for name, sets in loaded:
+        t1 = time.time()
+        g = run_consensus_giant(
+            sets, box_size, n_stripes=stripes, threshold=threshold,
+            max_neighbors=max_neighbors, spatial=spatial, solver=solver,
+            device=dev,
+        )
+        t2 = time.time()
+        sel = g["picked"]
+        stats["particle_counts"][name] = _write_box_file(
+            os.path.join(out_dir, name + ".box"),
+            g["rep_xy"][sel], g["confidence"][sel], g["rep_slot"][sel],
+            box_size, num_particles,
+        )
+        write_s += time.time() - t2
+        compute_s += t2 - t1
+        stats["clique_counts"][name] = g["num_cliques"]
+        stats["num_cliques"] += g["num_cliques"]
+        giant_stats[name] = {
+            "seconds": t2 - t1,
+            "stripe_capacity": g["stripe_capacity"],
+            "config": list(g["config"]),
+        }
+    stats.update(stripes=stripes, giant=giant_stats, compute_s=compute_s,
+                 write_s=write_s)
+    return stats
+
+
 def run_consensus_dir(
     in_dir: str,
     out_dir: str,
@@ -490,15 +822,28 @@ def run_consensus_dir(
     spatial: bool | None = None,
     solver: str = "lp_device",
     use_pallas: bool = False,
+    multi_out: bool = False,
+    get_cc: bool = False,
+    stripes: int | str | None = None,
+    solver_budget_s: float | None = None,
     device=None,
 ) -> dict:
-    """Read ``in_dir/<picker>/*.box``, run consensus, write one BOX file
+    """Read ``in_dir/<picker>/*.box``, run consensus, write one output
     per micrograph into ``out_dir`` (deleted first if it exists).
     Micrographs missing from a picker, or empty in one, get an empty
     BOX file.  ``spatial`` as in :func:`run_consensus_batch`, per
-    chunk.  Returns run statistics."""
-    if solver not in SOLVERS:
-        raise NotImplementedError(_UNPORTED_SOLVER.format(solver, SOLVERS))
+    chunk.
+
+    ``multi_out`` / ``get_cc`` write the two-phase pair's tables
+    (:func:`write_consensus_tables`).  ``solver="exact"`` re-solves
+    each micrograph on the host ladder, under ``solver_budget_s``
+    degrading to lp and greedy (``stats["solver_rungs"]`` names the
+    rung of each).  ``stripes`` (an int, or ``"auto"``, which on one
+    device means no striping) splits each micrograph into x-stripes.
+    Flags are checked before ``out_dir`` is touched.  Returns run
+    statistics."""
+    _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
+                 use_pallas)
     dev = resolve_device(device)
     t0 = time.time()
     pickers = box_io.discover_picker_dirs(in_dir)
@@ -522,6 +867,8 @@ def run_consensus_dir(
         "skipped": skipped,
         "device": str(dev),
         "solver": solver,
+        "multi_out": multi_out,
+        "get_cc": get_cc,
         "load_s": time.time() - t0,
         "num_cliques": 0,
         "particle_counts": {},
@@ -531,48 +878,88 @@ def run_consensus_dir(
     if not loaded:
         stats["total_s"] = time.time() - t0
         return stats
+    if stripes == "auto":
+        # the reference stripes only when there are fewer micrographs
+        # than devices: never with one device
+        stripes = None
+    if stripes is not None:
+        _run_striped(
+            loaded, out_dir, box_size, stripes, stats,
+            threshold=threshold, max_neighbors=max_neighbors,
+            num_particles=num_particles, spatial=spatial, solver=solver,
+            dev=dev,
+        )
+        stats["total_s"] = time.time() - t0
+        return stats
 
     def _sink(fname, content):
         with box_io.atomic_write(os.path.join(out_dir, fname)) as o:
             o.write(content)
 
+    host_solver = solver == "exact"
+    # the exact solver shares the tables' data path: the device runs
+    # the greedy program and the host re-solves the fetched result
+    tables = multi_out or get_cc or host_solver
+    device_solver = "greedy" if host_solver else solver
+    cc_sizes = np.asarray(box_size, np.float32)
+    cc_arg = (torch.from_numpy(cc_sizes).to(dev) if cc_sizes.ndim
+              else float(box_size))
     k = len(loaded[0][1])
-    nb = bucket_size(max(bs.n for _, sets in loaded for bs in sets))
-    chunk = _auto_chunk(len(loaded), k, nb)
     compute_s = write_s = 0.0
-    for i in range(0, len(loaded), chunk):
-        part = loaded[i : i + chunk]
-        single = chunk >= len(loaded)
-        cbatch = pad_batch(
-            part, pad_micrographs_to=1 if single else chunk, capacity=nb
-        )
+    rungs: dict = {}
+    cc_rounds = []
+    chunks_info: dict = {}
+    chunks = iter_consensus_chunks(
+        loaded, box_size, info=chunks_info,
+        threshold=threshold,
+        max_neighbors=max_neighbors,
+        spatial=spatial,
+        solver=device_solver,
+        use_pallas=use_pallas,
+        device=dev,
+        full=tables,
+    )
+    for part, cbatch, packed, chunk_s in chunks:
         t1 = time.time()
-        _res, packed = run_consensus_batch(
-            cbatch, box_size,
-            threshold=threshold,
-            max_neighbors=max_neighbors,
-            spatial=spatial,
-            solver=solver,
-            use_pallas=use_pallas,
-            device=dev,
-        )
-        t2 = time.time()
-        counts = emit_box_chunk(
-            cbatch, packed, box_size,
-            num_particles=num_particles, sink=_sink,
-        )
-        write_s += time.time() - t2
-        compute_s += t2 - t1
-        stats["particle_counts"].update(counts)
         nc = _packed_probes(packed)[:, _HEAD_NC]
+        if tables:
+            res = _unpack_full_result(packed, k)
+            cc = None
+            if get_cc:
+                cc, rounds = cc_labels_host(cbatch, cc_arg, threshold, dev)
+                cc_rounds.append(rounds)
+            if host_solver:
+                res = _host_solve_chunk(
+                    part, res, cbatch.capacity, budget_s=solver_budget_s,
+                    rungs=rungs, device=dev,
+                )
+            t2 = time.time()
+            counts = write_consensus_tables(
+                part, res, cc, out_dir, box_size, pickers,
+                multi_out=multi_out, get_cc=get_cc,
+                num_particles=num_particles,
+            )
+        else:
+            t2 = time.time()
+            counts = emit_box_chunk(
+                cbatch, packed, box_size,
+                num_particles=num_particles, sink=_sink,
+            )
+        write_s += time.time() - t2
+        compute_s += chunk_s + (t2 - t1)
+        stats["particle_counts"].update(counts)
         stats["clique_counts"].update(
             (name, int(c)) for name, c in zip(cbatch.names, nc) if name
         )
-        stats["num_cliques"] += int(nc.sum())
+        stats["num_cliques"] += int(nc[: len(part)].sum())
         stats["chunks"] += 1
+    if host_solver:
+        stats["solver_rungs"] = rungs
+    if get_cc:
+        stats["cc_rounds"] = cc_rounds
     stats.update(
-        chunk=chunk,
-        capacity=nb,
+        chunk=chunks_info["chunk"],
+        capacity=chunks_info["capacity"],
         compute_s=compute_s,
         write_s=write_s,
         total_s=time.time() - t0,

@@ -1,8 +1,10 @@
 """BOX coordinate-file I/O (the port's own copy of ``repic_tpu``'s).
 
-Reading is the line-loop tier of ``repic_tpu.utils.box_io`` — the
-semantic specification of the BOX format there, and the tier that
-needs no pandas and no native parser:
+Reading tries the native C++ row parser first (``native/
+boxparse.cpp``: one pass over the bytes, strtod per token, the same
+floats as CPython's ``float``), and reads a file it declines (an odd
+header, a bad token, a short row) with the line loop — the semantic
+specification of the format:
 
 * an optional single header line, sniffed by "is the first token a
   float?";
@@ -57,11 +59,29 @@ def _is_float(tok) -> bool:
 
 
 def read_box(path: str) -> BoxSet:
-    """Parse a BOX file; empty files yield an empty :class:`BoxSet`."""
+    """Parse a BOX file; empty files yield an empty :class:`BoxSet`.
+    The native parser reads it unless it declines the file; then the
+    line loop does.  A parser that cannot be built raises."""
     try:
+        arr = _read_box_native(path)
+        if arr is not None:
+            return arr
         return _read_box_slow(path)
     except (OSError, ValueError, IndexError) as e:
         raise BoxParseError(path, e) from e
+
+
+def _read_box_native(path: str) -> BoxSet | None:
+    from repic_tpu_torch.native import parse_box_native
+
+    with open(path, "rb") as f:
+        data = f.read()
+    arr = parse_box_native(data)
+    if arr is None:
+        return None
+    return _finish_box(
+        arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3], arr[:, 4]
+    )
 
 
 def _finish_box(x, y, w, h, conf) -> BoxSet:
@@ -145,12 +165,24 @@ def render_box(
     return "".join(lines), len(order)
 
 
+def write_box(path: str, xy, weights, box_size, *,
+              num_particles: int | None = None) -> None:
+    """:func:`render_box` into ``path``, published atomically."""
+    content, _ = render_box(xy, weights, box_size,
+                            num_particles=num_particles)
+    with atomic_write(path) as o:
+        o.write(content)
+
+
 @contextlib.contextmanager
-def atomic_write(path: str):
-    """Write ``path`` through a same-directory temp file published
-    with one ``os.replace``: a reader never sees a torn file."""
+def atomic_write(path: str, mode: str = "wt"):
+    """Write ``path`` (``mode`` ``"wt"`` or ``"wb"``) through a
+    same-directory temp file published with one ``os.replace``: a
+    reader never sees a torn file."""
+    if mode not in ("wt", "wb"):
+        raise ValueError(f"atomic_write requires 'wt' or 'wb', got {mode!r}")
     tmp = f"{path}.tmp{os.getpid()}"
-    f = open(tmp, "wt")
+    f = open(tmp, mode)
     try:
         yield f
         f.flush()

@@ -229,3 +229,59 @@ def tree_sha256(root: str) -> str:
             h.update(os.path.relpath(path, root).encode() + b"\0")
             h.update(file_sha256(path).encode())
     return h.hexdigest()
+
+
+def pickle_sha256(path: str) -> str:
+    """Digest of a pickle's content, not its bytes (the bytes depend on
+    the numpy and scipy versions that wrote them): arrays by dtype
+    kind, shape and values, sparse matrices as COO triples, lists and
+    tuples element by element, floats by ``repr``."""
+    import pickle
+
+    with open(path, "rb") as f:
+        obj = pickle.load(f)
+    h = hashlib.sha256()
+
+    def feed(x):
+        if hasattr(x, "tocoo"):
+            c = x.tocoo()
+            h.update(f"coo{c.shape}".encode())
+            for a in (c.row, c.col, c.data):
+                feed(np.asarray(a, np.int64))
+        elif isinstance(x, np.ndarray):
+            h.update(f"nd{x.dtype.kind}{x.dtype.itemsize}{x.shape}".encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+        elif isinstance(x, (list, tuple)):
+            h.update(f"{type(x).__name__}{len(x)}[".encode())
+            for v in x:
+                feed(v)
+            h.update(b"]")
+        else:
+            h.update(f"{type(x).__name__}:{x!r};".encode())
+
+    feed(obj)
+    return h.hexdigest()
+
+
+def output_digests(out_dir: str, exts=(".box", ".tsv")) -> dict:
+    """Digests of a run's outputs in ``out_dir``, by file name, for the
+    files with one of ``exts``: sha256 and line count; a pickle by
+    content (:func:`pickle_sha256`); a ``_runtime.tsv`` by its
+    largest-component and component-count columns (the first column
+    is a time).  The JAX package's ``consensus_runtime.tsv`` is not an
+    output."""
+    out = {}
+    for f in sorted(os.listdir(out_dir)):
+        path = os.path.join(out_dir, f)
+        if f.endswith("runtime.tsv"):
+            if "_runtime.tsv" in exts and not f.startswith("consensus"):
+                with open(path) as fh:
+                    out[f] = {"cc": fh.readline().split("\t")[1:3]}
+        elif f.endswith(".pickle"):
+            if ".pickle" in exts:
+                out[f] = {"content_sha256": pickle_sha256(path)}
+        elif f.endswith(exts):
+            with open(path) as fh:
+                rows = sum(1 for _ in fh)
+            out[f] = {"sha256": file_sha256(path), "rows": rows}
+    return out

@@ -26,6 +26,22 @@ writes from seed 0 (their digest is recorded too):
   ``lp_device`` bytes; the card holds ``--pallas`` and
   ``lp_device_fused`` to the ``lp_device`` digests.
 
+And it writes ``tests/golden/torch_port_flags_digests.json``: the
+sha256 and row count of every output file (pickles by content,
+:func:`repic_tpu_torch.utils.synthetic.pickle_sha256`) of
+
+* ``tables`` — ``consensus --multi_out``, ``--get_cc`` and both on
+  10017 under ``lp_device``, ``lp_device --pallas`` and
+  ``lp_device_fused`` (megakernel in interpret mode);
+* ``solvers`` — ``consensus --solver exact`` and ``--solver lp`` on
+  10017;
+* ``two_phase`` — ``get_cliques`` (plain, ``--multi_out``,
+  ``--get_cc``) on 10017, then ``run_ilp`` with each backend
+  (``exact``, ``greedy``, ``lp``);
+* ``stripes`` — ``consensus --stripes 4`` on the two ``stress_50k``
+  golden micrographs under ``lp_device`` (the striped path solves
+  greedy) and ``lp``.
+
 Every JAX run is ``use_mesh=False`` with the config cache off, so the
 capacities come from that run alone.  The card machine has no JAX, so
 ``chip_smoke.py`` compares the port's output with these files;
@@ -34,8 +50,11 @@ live JAX run and ``tests/test_torch_staged.py`` the port's CPU run to
 the digests.  Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/golden/make_torch_port_golden.py
+
+``--only flags`` rewrites only ``torch_port_flags_digests.json``.
 """
 
+import argparse
 import json
 import os
 import shutil
@@ -56,6 +75,20 @@ DIGEST_MICROGRAPHS = {"stress_50k": 2, "k5_mixed": 32}
 DIGEST_SETTINGS = ("lp_device", "greedy")
 #: k5_mixed micrographs on which --pallas is checked in interpret mode
 PALLAS_CHECK = 2
+FLAGS_DIGESTS = os.path.join(REPO, "tests", "golden",
+                             "torch_port_flags_digests.json")
+#: 10017 table runs: flags -> (multi_out, get_cc)
+TABLE_FLAGS = {"multi_out": (True, False), "get_cc": (False, True),
+               "multi_out_get_cc": (True, True)}
+#: solver settings of the table runs (names of ``SETTINGS``)
+TABLE_SETTINGS = ("lp_device", "lp_device_pallas", "lp_device_fused")
+SOLVER_SETTINGS = ("exact", "lp")
+#: get_cliques flags -> (multi_out, get_cc); then each run_ilp backend
+TWO_PHASE = {"plain": (False, False), "multi_out": (True, False),
+             "get_cc": (False, True)}
+BACKENDS = ("exact", "greedy", "lp")
+STRIPES = 4
+STRIPED_SOLVERS = ("lp_device", "lp")
 
 
 def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
@@ -79,6 +112,114 @@ def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
             os.environ.pop(force, None)
         else:
             os.environ[force] = old
+
+
+def run_jax_flags(in_dir: str, out_dir: str, box_size, *,
+                  solver: str = "lp_device", use_pallas: bool = False,
+                  **kw) -> dict:
+    """The JAX package's ``run_consensus_dir`` with any of its flags
+    (``multi_out``, ``get_cc``, ``stripes``, ``solver_budget_s``): no
+    mesh, no config cache, the in-memory memo cleared, the megakernel
+    forced for ``lp_device_fused``."""
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    from repic_tpu.pipeline import consensus as jcons
+
+    jcons._LAST_GOOD_CONFIG.clear()
+    jcons._RECENT_REQUIREMENTS.clear()
+    force = "REPIC_TPU_MEGAKERNEL_FORCE"
+    old = os.environ.get(force)
+    if solver == "lp_device_fused":
+        os.environ[force] = "1"
+    try:
+        return jcons.run_consensus_dir(
+            in_dir, out_dir, box_size, use_mesh=False, solver=solver,
+            use_pallas=use_pallas, **kw)
+    finally:
+        if old is None:
+            os.environ.pop(force, None)
+        else:
+            os.environ[force] = old
+
+
+def run_jax_get_cliques(in_dir: str, out_dir: str, box_size: int, *,
+                        multi_out: bool, get_cc: bool) -> None:
+    """The JAX package's ``get_cliques`` (no mesh, memo cleared)."""
+    from types import SimpleNamespace
+
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    from repic_tpu.commands import get_cliques
+    from repic_tpu.pipeline import consensus as jcons
+
+    jcons._LAST_GOOD_CONFIG.clear()
+    jcons._RECENT_REQUIREMENTS.clear()
+    get_cliques.main(SimpleNamespace(
+        in_dir=in_dir, out_dir=out_dir, box_size=box_size,
+        multi_out=multi_out, get_cc=get_cc, max_neighbors=16,
+        no_mesh=True))
+
+
+def run_jax_ilp(in_dir: str, box_size: int, backend: str) -> None:
+    """The JAX package's ``run_ilp`` over ``in_dir``'s pickles."""
+    from types import SimpleNamespace
+
+    from repic_tpu.commands import run_ilp
+
+    run_ilp.main(SimpleNamespace(in_dir=in_dir, box_size=box_size,
+                                 num_particles=None, backend=backend))
+
+
+def make_flag_digests(tmp: str) -> dict:
+    """The JAX outputs that ``chip_smoke.py`` phase 8 holds the card to."""
+    from repic_tpu_torch.utils.synthetic import (
+        output_digests,
+        tree_sha256,
+        write_cell_dir,
+    )
+
+    golden = {"tables": {}, "solvers": {}, "two_phase": {}, "stripes": {}}
+    for setting in TABLE_SETTINGS:
+        solver, pallas = SETTINGS[setting]
+        for flags, (mo, cc) in TABLE_FLAGS.items():
+            out = os.path.join(tmp, f"t_{setting}_{flags}")
+            run_jax_flags(EXAMPLES, out, BOX_SIZE, solver=solver,
+                          use_pallas=pallas, multi_out=mo, get_cc=cc)
+            golden["tables"][f"{setting}/{flags}"] = output_digests(out)
+            print("tables", setting, flags)
+    for solver in SOLVER_SETTINGS:
+        out = os.path.join(tmp, f"s_{solver}")
+        run_jax_flags(EXAMPLES, out, BOX_SIZE, solver=solver)
+        golden["solvers"][solver] = output_digests(out)
+        print("solver", solver)
+    for flags, (mo, cc) in TWO_PHASE.items():
+        out = os.path.join(tmp, f"p_{flags}")
+        run_jax_get_cliques(EXAMPLES, out, BOX_SIZE, multi_out=mo,
+                            get_cc=cc)
+        entry = {"get_cliques": output_digests(
+            out, (".pickle", "_runtime.tsv"))}
+        for backend in BACKENDS:
+            run_jax_ilp(out, BOX_SIZE, backend)
+            entry[backend] = output_digests(out)
+        golden["two_phase"][flags] = entry
+        print("two-phase", flags)
+    in_dir = os.path.join(tmp, "stress_in")
+    m = DIGEST_MICROGRAPHS["stress_50k"]
+    box = write_cell_dir("stress_50k", in_dir, m)
+    golden["stripes"] = {"cell": "stress_50k", "micrographs": m,
+                         "input_sha256": tree_sha256(in_dir),
+                         "stripes": STRIPES, "settings": {}}
+    for solver in STRIPED_SOLVERS:
+        out = os.path.join(tmp, f"g_{solver}")
+        st = run_jax_flags(in_dir, out, box, solver=solver, stripes=STRIPES)
+        assert st["stripes"] == STRIPES
+        golden["stripes"]["settings"][solver] = output_digests(out)
+        print("stripes", solver, st["num_cliques"], "cliques")
+    return golden
+
+
+def write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def run_jax_dir(in_dir: str, out_dir: str, box_size, solver: str,
@@ -153,12 +294,16 @@ def make_digests(tmp: str) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["flags"])
+    args = ap.parse_args()
     sys.path.insert(0, REPO)
     with tempfile.TemporaryDirectory() as tmp:
-        golden = make_digests(tmp)
-        with open(DIGESTS, "w") as f:
-            json.dump(golden, f, indent=1, sort_keys=True)
-            f.write("\n")
+        write_json(FLAGS_DIGESTS, make_flag_digests(tmp))
+    if args.only == "flags":
+        return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        write_json(DIGESTS, make_digests(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         for setting in SETTINGS:
             out = os.path.join(tmp, setting)

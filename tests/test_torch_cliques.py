@@ -132,11 +132,8 @@ def test_median_is_midpoint():
     )
 
 
-def test_unported_assembly_regimes_raise():
-    """The staged and anchor-chunked regimes match the reference.
-
-    The name is the one this test had while the two regimes raised
-    ``NotImplementedError``; they now run and give the reference's
+def test_staged_and_chunked_regimes_match_reference():
+    """The staged and anchor-chunked regimes give the reference's
     clique sets (D^(K-1) = 289 > 256 with a capacity: staged; N = 64 >
     anchor_chunk = 32: chunked)."""
     xy, conf, mask = clique_inputs(3, 64)

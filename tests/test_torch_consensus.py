@@ -116,7 +116,13 @@ def test_import_pulls_in_no_jax():
         "new = set(sys.modules) - before\n"
         "assert {'repic_tpu_torch.pipeline.consensus',"
         " 'repic_tpu_torch.ops.spatial',"
-        " 'repic_tpu_torch.utils.synthetic'} <= new\n"
+        " 'repic_tpu_torch.utils.synthetic',"
+        " 'repic_tpu_torch.pipeline.giant',"
+        " 'repic_tpu_torch.ops.components',"
+        " 'repic_tpu_torch.runtime.ladder',"
+        " 'repic_tpu_torch.native',"
+        " 'repic_tpu_torch.commands.get_cliques',"
+        " 'repic_tpu_torch.commands.run_ilp'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu'))\n"
         "print(len(bad), bad[:5])\n"
@@ -125,6 +131,11 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # built libraries land under build/, never inside the package
+    built = [f for f in glob.glob(os.path.join(REPO, "repic_tpu_torch", "**",
+                                               "*"), recursive=True)
+             if f.endswith((".so", ".o", ".tmp"))]
+    assert not built, built
 
 
 def _imported_modules(path):
@@ -140,6 +151,12 @@ def _imported_modules(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(REPO, "repic_tpu_torch", "**", "*.py"),
                       recursive=True)
+    # the modules of the lp/exact rungs, the tables, the striped path,
+    # the two-phase commands and the native cores are among them
+    for mod in ("ops/solver.py", "ops/components.py", "runtime/ladder.py",
+                "pipeline/giant.py", "native/__init__.py",
+                "commands/get_cliques.py", "commands/run_ilp.py"):
+        assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_cuda.py",
@@ -187,9 +204,16 @@ def test_cli_on_cpu_matches_jax(jax_outputs, tmp_path):
 
 
 def test_unported_solver_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported.*item 4"):
-        tcons.run_consensus_dir(DATASETS["mini10017"], str(tmp_path), BOX,
-                                solver="exact", device="cpu")
+    """Every solver of the reference is ported; a name that is none of
+    them raises before anything is deleted."""
+    assert tcons.SOLVERS == ("greedy", "lp", "lp_device",
+                             "lp_device_fused", "exact")
+    out = tmp_path / "o"
+    out.mkdir()
+    with pytest.raises(ValueError, match="unknown solver 'gurobi'"):
+        tcons.run_consensus_dir(DATASETS["mini10017"], str(out), BOX,
+                                solver="gurobi", device="cpu")
+    assert out.exists()
 
 
 def test_cuda_tests_are_marked():

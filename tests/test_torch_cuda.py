@@ -338,3 +338,43 @@ def test_kernel_1_serves_d_past_the_reference_cap(cuda_device):
     want = tc.enumerate_cliques(*[t(a)[None] for a in (xy, conf, mask)],
                                 BOX, use_pallas=True, **kw)
     _same_cliques(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,v", [(300, 3, 120), (2000, 4, 600)])
+def test_lp_rounding_on_card_matches_cpu(cuda_device, c, k, v):
+    """The lp rung's torch ops on the card pick as on the CPU (which
+    is held to the JAX package), also on near-tie packings."""
+    from repic_tpu_torch.ops.solver import solve_lp_rounding
+
+    rng = np.random.default_rng(c)
+    mv = rng.integers(0, v, (4, c, k)).astype(np.int32)
+    w = rng.uniform(0.01, 1.0, (4, c)).astype(np.float32)
+    valid = rng.uniform(size=(4, c)) > 0.1
+    cases = [(mv, w, valid, v), near_tie_packings(8, 2, 200, seed=c)]
+    for a, b, vl, nv in cases:
+        want = solve_lp_rounding(t(a), t(b), t(vl), nv)
+        got = solve_lp_rounding(t(a, cuda_device), t(b, cuda_device),
+                                t(vl, cuda_device), nv)
+        np.testing.assert_array_equal(n(got), n(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4, 5])
+def test_components_on_card_match_cpu(cuda_device, k):
+    from repic_tpu_torch.ops.components import connected_component_labels
+
+    xs, _, ms = zip(*(clique_inputs(k, 256, seed=k + i) for i in range(3)))
+    xy, mask = np.stack(xs), np.stack(ms)
+    sizes = np.linspace(150.0, 210.0, k).astype(np.float32)
+    for box in (BOX, sizes):
+        want = connected_component_labels(t(xy), t(mask), (
+            t(box) if isinstance(box, np.ndarray) else box))
+        got = connected_component_labels(
+            t(xy, cuda_device), t(mask, cuda_device),
+            t(box, cuda_device) if isinstance(box, np.ndarray) else box)
+        lab_w, nm_w, r_w = want
+        lab_g, nm_g, r_g = got
+        np.testing.assert_array_equal(n(nm_g), n(nm_w))
+        np.testing.assert_array_equal(n(lab_g)[n(nm_g)], n(lab_w)[n(nm_w)])
+        assert r_g == r_w
