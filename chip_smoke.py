@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6, 7 and 8, print the ``{"kernels": [...]}`` line
+5. after phases 6, 7, 8 and 9, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -72,7 +72,21 @@ Phases, each fatal on failure:
    with each micrograph's seconds, stripe capacity, accepted
    capacities and the peak device memory; last, the seconds to read
    the synthetic and stress BOX files with the native parser and with
-   the line loop.
+   the line loop;
+9. the fault-tolerant runtime (``tests/golden/
+   torch_port_runtime_digests.json``): (a) ``consensus --solver
+   lp_device_fused`` on 10017 with one BOX file unreadable and
+   ``REPIC_TPU_FAULTS`` halving a chunk and demoting a micrograph --
+   11 BOX files and the journal equal the JAX run's, kernels 2 and 3
+   launched -- then ``--resume`` after the repair (all 12); (b)
+   ``--strict`` on that input exits non-zero naming the file; (c)
+   ``synthetic_256`` fused and ``--pallas`` with the chunk prefetch on
+   and off, :data:`PREFETCH_PAIRS` alternating warm pairs each, every
+   run's BOX bytes equal to phase 4's, with the medians and ranges of
+   the wall, ``load_s``, ``compute_s`` and ``write_s``; (d) two
+   processes over one capacity-config sidecar in a temporary HOME, both
+   runs' BOX files and the sidecar equal to the JAX package's.  Every
+   other phase runs with the sidecar off.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -104,6 +118,10 @@ N_SYNTH = 256
 DIGESTS = os.path.join(REPO, "tests", "golden", "torch_port_digests.json")
 FLAG_DIGESTS = os.path.join(REPO, "tests", "golden",
                             "torch_port_flags_digests.json")
+RUNTIME_DIGESTS = os.path.join(REPO, "tests", "golden",
+                               "torch_port_runtime_digests.json")
+#: warm runs per side of phase 9's prefetch on/off comparison
+PREFETCH_PAIRS = 10
 #: micrographs in the warm passes of the two dense configurations
 #: (each configuration's full count)
 STRESS_WARM = 128
@@ -764,6 +782,236 @@ def phase_flags(synth):
     return rep
 
 
+# -- phase 9: the fault-tolerant runtime --------------------------------
+
+
+def _spread(values):
+    """Median and min-max of ``values``."""
+    import statistics
+
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values)}
+
+
+def _fault_cli(plan, *argv):
+    """:func:`cli` with ``REPIC_TPU_FAULTS`` set to ``plan`` (the CLI
+    installs it), the plan cleared after."""
+    from repic_tpu_torch.runtime import faults
+
+    os.environ["REPIC_TPU_FAULTS"] = ",".join(plan)
+    try:
+        return cli(*argv)
+    finally:
+        del os.environ["REPIC_TPU_FAULTS"]
+        faults.clear()
+
+
+def phase_runtime(synth, phase4_outs):
+    """Phase 9: (a) a lenient run of 10017 with an unreadable BOX file
+    and a fault plan, then ``--resume`` after the repair, each held to
+    the JAX digests; (b) ``--strict`` on the same input fails naming the
+    file; (c) ``synthetic_256`` with the chunk prefetch on and off, 10
+    alternating pairs per setting, the bytes of phase 4; (d) two
+    processes over one capacity-config sidecar in a temporary HOME, the
+    second writing the JAX package's second-run bytes."""
+    from repic_tpu_torch.utils.synthetic import journal_view, output_digests
+
+    with open(RUNTIME_DIGESTS) as f:
+        gold = json.load(f)
+    rep = {}
+    # (a) lenient, then resumed
+    src = os.path.join(WORK, "rt_in")
+    shutil.copytree(EXAMPLES, src)
+    bad = os.path.join(src, gold["bad_box"])
+    with open(bad, "w") as f:
+        f.write(gold["bad_text"])
+    out = os.path.join(WORK, "rt_out")
+    name = os.path.basename(bad)[: -len(".box")]
+    for run in ("lenient", "resumed"):
+        if run == "resumed":
+            shutil.copy(os.path.join(EXAMPLES, gold["bad_box"]), bad)
+            st, wall, counts = cli("consensus", src, out, BOX, "--solver",
+                                   gold["solver"], "--resume")
+        else:
+            st, wall, counts = _fault_cli(gold["plan"], "consensus", src,
+                                          out, BOX, "--solver",
+                                          gold["solver"])
+        want = gold[run]
+        check_outputs(f"10017 {run}", out, want["boxes"], (".box",))
+        if journal_view(out, src) != want["journal"]:
+            raise AssertionError(f"10017 {run}: journal differs from JAX's")
+        if (sorted(st["quarantined"]) != want["quarantined"]
+                or st["resumed"] != want["resumed"]
+                or st["journal"] != want["summary"]):
+            raise AssertionError(f"10017 {run}: stats {st['quarantined']}, "
+                                 f"{st['resumed']}, {st['journal']}")
+        for k in ("fused_clique_candidates", "fused_dual_solve"):
+            if counts[k] <= 0:
+                raise AssertionError(f"10017 {run}: {k} never launched")
+        rep[run] = {"wall_s": wall, "launches": counts,
+                    "journal": st["journal"], "fallbacks": st["fallbacks"]}
+        log(f"phase 9a: 10017 {run}: {len(want['boxes'])} BOX files and the "
+            f"journal equal the JAX run's ({st['journal']}); quarantined "
+            f"{sorted(st['quarantined'])}, resumed {st['resumed']}; launches "
+            f"{counts}; wall {wall:.3f}s")
+    # (b) strict fails fast and names the file
+    with open(bad, "w") as f:
+        f.write(gold["bad_text"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "repic_tpu_torch", "consensus", src,
+         os.path.join(WORK, "rt_strict"), str(BOX), "--strict"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0 or bad not in proc.stderr:
+        raise AssertionError(f"--strict: rc {proc.returncode}, stderr "
+                             f"{proc.stderr[-400:]}")
+    log(f"phase 9b: --strict exits {proc.returncode}: "
+        + proc.stderr.strip().splitlines()[-1][:160])
+    # (c) prefetch on and off, warm, alternating
+    from repic_tpu_torch.pipeline import consensus
+
+    want_bytes = {}
+    for setting, ref in phase4_outs.items():
+        want_bytes[setting] = {f: open(os.path.join(ref, f), "rb").read()
+                               for f in sorted(os.listdir(ref))
+                               if f.endswith(".box")}
+    rep["prefetch"] = {}
+    for setting, solver, pallas in (
+        ("lp_device_fused", "lp_device_fused", False),
+        ("lp_device_pallas", "lp_device", True),
+    ):
+        runs = {"on": [], "off": []}
+        clear_memo()
+        consensus.run_consensus_dir(synth, os.path.join(WORK, "pf_warm"),
+                                    BOX, solver=solver, use_pallas=pallas,
+                                    device="cuda")
+        for i in range(PREFETCH_PAIRS):
+            for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                os.environ["REPIC_TPU_NO_PREFETCH"] = (
+                    "1" if mode == "off" else "")
+                pout = os.path.join(WORK, f"pf_{mode}")
+                st, wall, counts = run_dir(synth, pout, BOX, solver=solver,
+                                           use_pallas=pallas)
+                got = {f: open(os.path.join(pout, f), "rb").read()
+                       for f in sorted(os.listdir(pout))
+                       if f.endswith(".box")}
+                if got != want_bytes[setting]:
+                    raise AssertionError(f"prefetch {mode} {setting}: BOX "
+                                         "bytes differ from phase 4's")
+                runs[mode].append({"wall_s": wall, "load_s": st["load_s"],
+                                   "compute_s": st["compute_s"],
+                                   "write_s": st["write_s"]})
+        os.environ.pop("REPIC_TPU_NO_PREFETCH", None)
+        summary = {mode: {k: _spread([r[k] for r in rs]) for k in rs[0]}
+                   for mode, rs in runs.items()}
+        rep["prefetch"][setting] = {"runs": runs, "summary": summary}
+        for mode in ("on", "off"):
+            log(f"phase 9c: {setting} prefetch {mode}, {PREFETCH_PAIRS} warm "
+                f"runs of {N_SYNTH}: " + "; ".join(
+                    f"{k} median {v['median']:.4f}s ({v['min']:.4f}-"
+                    f"{v['max']:.4f})" for k, v in summary[mode].items()))
+    log(f"phase 9c: prefetch on and off: {4 * PREFETCH_PAIRS} runs' BOX "
+        "bytes equal phase 4's")
+    # (d) the sidecar, two processes in a temporary HOME
+    sc = gold["sidecar"]
+    env = dict(os.environ, PYTHONPATH=REPO, HOME=os.path.join(WORK, "home"),
+               REPIC_CONSENSUS_CHUNK=str(sc["chunk"]))
+    env.pop("REPIC_TPU_NO_CONFIG_CACHE", None)
+    for run in ("first", "second"):
+        sout = os.path.join(WORK, "sc_" + run)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repic_tpu_torch", "consensus", EXAMPLES,
+             sout, str(BOX)], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"sidecar run {run}:\n{proc.stderr[-2000:]}")
+        check_outputs(f"sidecar {run}", sout, sc[run], (".box",))
+    with open(os.path.join(env["HOME"], ".cache", "repic_tpu_torch",
+                           "capacity_configs.json")) as f:
+        entries = json.load(f)
+    if entries != sc["entries"]:
+        raise AssertionError(f"sidecar entries {entries} != {sc['entries']}")
+    rep["sidecar"] = entries
+    log(f"phase 9d: two processes over one sidecar: both runs' BOX files "
+        f"equal the JAX digests; sidecar {entries}")
+    return rep
+
+
+# -- A/B passes: one tree's directory runs, for a before/after ----------
+
+#: warm synthetic_256 pairs (prefetch on, off) per --passes process
+PASS_REPS = 5
+#: where --passes writes its inputs once and every later process reuses
+#: them (one tree's generator, the same seeds)
+AB_INPUTS = os.path.join(REPO, "build", "chip_smoke_ab")
+
+
+def passes(tree: str) -> int:
+    """``--passes TREE``: time the directory runs of the port in ``TREE``
+    (a checkout, such as the parent commit unpacked with ``git archive``)
+    on the card, and print one JSON line with each run's wall,
+    ``load_s``, ``compute_s`` and ``write_s``: ``synthetic_256`` with
+    ``lp_device_fused``, one cold run then :data:`PASS_REPS` warm pairs
+    with the chunk prefetch on and off (in turns), and two
+    ``stress_50k`` passes of :data:`STRESS_WARM` micrographs from a cold
+    memo, prefetch on then off (``REPIC_TPU_NO_PREFETCH``; a tree
+    without the prefetch runs the same serial loop both times).  Run
+    parent, new, new, parent in one call to compare two trees."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    from repic_tpu_torch import _build
+    from repic_tpu_torch.pipeline import consensus
+    from repic_tpu_torch.utils.synthetic import (
+        CELLS, write_cell_dir, write_synthetic_dir,
+    )
+
+    if not consensus.__file__.startswith(tree):
+        raise AssertionError(f"imported {consensus.__file__}, not {tree}")
+    _build.build_all()
+    synth = os.path.join(AB_INPUTS, "synthetic_in")
+    stress = os.path.join(AB_INPUTS, "stress_in")
+    done = os.path.join(AB_INPUTS, "written")
+    if not os.path.exists(done):
+        shutil.rmtree(AB_INPUTS, ignore_errors=True)
+        write_synthetic_dir(synth, n_micrographs=N_SYNTH, seed=0)
+        write_cell_dir("stress_50k", stress, STRESS_WARM)
+        open(done, "w").close()
+    out = os.path.join(AB_INPUTS, "out")
+    keys = ("load_s", "compute_s", "write_s")
+    res = {"tree": tree, "card": smi(),
+           "synthetic_256": {"cold": None, "on": [], "off": []},
+           "stress_50k": {}}
+
+    def timed(src, box, solver, prefetch):
+        os.environ["REPIC_TPU_NO_PREFETCH"] = "" if prefetch else "1"
+        st, wall, _ = run_dir(src, out, box, solver=solver)
+        return {"wall_s": wall, **{k: st[k] for k in keys}}
+
+    clear_memo()
+    res["synthetic_256"]["cold"] = timed(synth, BOX, "lp_device_fused", True)
+    for i in range(PASS_REPS):
+        for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            res["synthetic_256"][mode].append(
+                timed(synth, BOX, "lp_device_fused", mode == "on"))
+    for mode in ("on", "off"):
+        clear_memo()
+        res["stress_50k"][mode] = {
+            "micrographs": STRESS_WARM,
+            **timed(stress, CELLS["stress_50k"]["box_size"], "lp_device",
+                    mode == "on")}
+    os.environ.pop("REPIC_TPU_NO_PREFETCH", None)
+    shutil.rmtree(out, ignore_errors=True)
+    log(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -772,6 +1020,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # the capacity-config sidecar stays off (phase 9d turns it on in a
+    # temporary HOME): a run must not start from capacities another
+    # process left in $HOME, since they decide bytes
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
     from repic_tpu_torch import _build
     from repic_tpu_torch.ops import cliques, iou_pallas, megakernel
     from repic_tpu_torch.parallel.batching import (
@@ -1102,6 +1354,9 @@ def main() -> int:
     # -- phase 8: the flags, the rungs, the two-phase CLI, stripes ----
     phase8 = phase_flags(synth)
 
+    # -- phase 9: the fault-tolerant runtime --------------------------
+    phase9 = phase_runtime(synth, outs)
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -1131,7 +1386,8 @@ def main() -> int:
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
-              "stress_50k": stress, "k5_mixed": k5, "phase8": phase8}
+              "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
+              "phase9": phase9}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))
@@ -1145,6 +1401,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--passes":
+        sys.exit(passes(sys.argv[2]))
     try:
         sys.exit(main())
     finally:

@@ -1,9 +1,11 @@
 """Directory consensus on one device.
 
 Reads ``IN_DIR/<picker>/*.box``, writes one consensus BOX file per
-micrograph into ``OUT_DIR`` (deleted first if it exists) — or, with
-``--multi_out``, one per-picker TSV — and prints the run statistics
-as one JSON line.  Runs on ``cuda`` unless ``--device cpu`` is given.
+micrograph into ``OUT_DIR`` (deleted first unless ``--resume``) — or,
+with ``--multi_out``, one per-picker TSV — with ``_journal.jsonl``,
+``_manifest.json`` and ``consensus_runtime.tsv`` beside them, and
+prints the run statistics as one JSON line.  Runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 import argparse
@@ -26,7 +28,7 @@ def add_arguments(parser):
     parser.add_argument(
         "out_dir",
         help="output directory for BOX files (WARNING - deleted if it "
-        "exists)",
+        "exists, unless --resume)",
     )
     parser.add_argument("box_size", type=int, help="box size (pixels)")
     parser.add_argument(
@@ -68,6 +70,35 @@ def add_arguments(parser):
         "micrographs than devices, which never holds on one card",
     )
     parser.add_argument(
+        "--resume",
+        action="store_true",
+        help="continue an interrupted run: keep out_dir, skip "
+        "micrographs already completed per its _journal.jsonl, and "
+        "re-process only quarantined/missing entries (the run "
+        "configuration must match _manifest.json, else the run "
+        "restarts from scratch)",
+    )
+    parser.add_argument(
+        "--strict",
+        action="store_true",
+        help="fail fast on the first bad input or unrecoverable "
+        "error instead of the default lenient mode (retry ladder + "
+        "quarantine of failing micrographs)",
+    )
+    parser.add_argument(
+        "--retries",
+        type=int,
+        default=None,
+        metavar="N",
+        help="transient-failure retries per rung of the runtime "
+        "ladder (default 2, bounded exponential backoff)",
+    )
+    parser.add_argument(
+        "--no_mesh",
+        action="store_true",
+        help="accepted for compatibility; the port runs on one device",
+    )
+    parser.add_argument(
         "--pallas",
         action="store_true",
         help="dense neighbour search through the fused top-D kernel; "
@@ -100,6 +131,7 @@ def add_arguments(parser):
 def main(args):
     from repic_tpu_torch.ops import iou_pallas, megakernel
     from repic_tpu_torch.pipeline.consensus import run_consensus_dir
+    from repic_tpu_torch.runtime.ladder import RetryPolicy
 
     if args.solver_budget is not None and args.solver != "exact":
         raise SystemExit(
@@ -120,6 +152,10 @@ def main(args):
         multi_out=args.multi_out,
         get_cc=args.get_cc,
         stripes=args.stripes,
+        resume=args.resume,
+        strict=args.strict,
+        retry_policy=(RetryPolicy(max_retries=args.retries)
+                      if args.retries is not None else None),
         solver_budget_s=args.solver_budget,
         device=args.device,
     )
@@ -128,5 +164,6 @@ def main(args):
         **megakernel.LAUNCHES,
     }
     stats["demotions"] = megakernel.DEMOTIONS
+    stats["fallbacks"] = dict(megakernel.FALLBACKS)
     print(json.dumps(stats, default=str))
     return stats

@@ -99,7 +99,6 @@ def main(args):
         largest_component_label,
     )
     from repic_tpu_torch.pipeline.consensus import (
-        _unpack_full_result,
         cc_labels_host,
         iter_consensus_chunks,
         resolve_device,
@@ -140,15 +139,15 @@ def main(args):
     # processing order
     next_id = 0
     per_micro_load = (time.time() - t_start) / max(len(loaded), 1)
-    # the picks are not used: the cheapest device solver will do
-    for part, cbatch, packed, chunk_s in iter_consensus_chunks(
+    # the picks are not used: the cheapest device solver will do; one
+    # fetch of the whole result per chunk, the labels one more
+    for part, _batch, res, cc, chunk_s in iter_consensus_chunks(
         loaded, args.box_size, max_neighbors=args.max_neighbors,
-        solver="greedy", device=dev, full=True,
+        solver="greedy", device=dev, fetch=True,
+        extra_device_outputs=lambda b: cc_labels_host(
+            b, float(args.box_size), DEFAULT_THRESHOLD, dev),
     ):
-        res = _unpack_full_result(packed, k)
-        (labels_b, node_mask_b), _ = cc_labels_host(
-            cbatch, float(args.box_size), DEFAULT_THRESHOLD, dev
-        )
+        (labels_b, node_mask_b), _rounds = cc
         # the chunk's device time, shared among its micrographs
         per_micro_runtime = per_micro_load + chunk_s / max(len(part), 1)
         for i, (mname, sets) in enumerate(part):

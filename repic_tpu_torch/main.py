@@ -36,7 +36,13 @@ def build_parser():
 
 
 def main(argv=None):
+    from repic_tpu_torch.runtime import faults
+
     args = build_parser().parse_args(argv)
+    # REPIC_TPU_FAULTS plants deterministic failures at the runtime's
+    # fault sites, so the retry / quarantine / resume ladder can be
+    # rehearsed on a real run
+    faults.install_from_env()
     args._module.main(args)
     return 0
 

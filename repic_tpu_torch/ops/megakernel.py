@@ -50,6 +50,9 @@ SOLVE_LANE = 128
 LAUNCHES = {"fused_clique_candidates": 0, "fused_dual_solve": 0}
 #: lp_device_fused chunks demoted to the staged program (envelope)
 DEMOTIONS = 0
+#: micrographs demoted off the fused rung after it ran, by reason
+#: (``fault``: the ``megakernel_fallback`` fault site)
+FALLBACKS: dict = {}
 #: (M, 8) int32 chain counters of the last fused_dual_solve launch, per
 #: micrograph: ascent steps, greedy rounds of the six fixpoints
 #: (candidate 0 pass 0, pass 1, candidate 1 pass 0, ...), block barriers
@@ -77,6 +80,11 @@ def fused_eligible(
 def note_demotion() -> None:
     global DEMOTIONS
     DEMOTIONS += 1
+
+
+def note_fallback(reason: str) -> None:
+    """Count one demotion off the fused rung (``FALLBACKS``)."""
+    FALLBACKS[reason] = FALLBACKS.get(reason, 0) + 1
 
 
 def _dims(n, k, max_neighbors, clique_capacity):

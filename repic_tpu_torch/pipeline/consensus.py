@@ -28,16 +28,29 @@ the host ladder (:mod:`repic_tpu_torch.runtime.ladder`).
 ``get_cliques`` + ``run_ilp`` pair (:func:`write_consensus_tables`)
 from one fetch of the whole result per chunk; ``stripes`` splits each
 micrograph into x-stripes (:mod:`repic_tpu_torch.pipeline.giant`).
-The journal, resume, cluster, gang and telemetry layers of the
-reference are not ported yet.
+
+Around the chunk loop runs the reference's fault-tolerant runtime on
+one host and one card (:mod:`repic_tpu_torch.runtime`): the BOX files
+load in a thread pool, a bad one is quarantined; the chunk engine
+(:func:`_iter_chunks_serial`) halves a chunk that runs out of memory,
+retries, falls back to single micrographs and quarantines, one chunk
+ahead in a worker thread (:func:`iter_consensus_chunks`); every
+outcome is journaled, ``resume`` continues a run, and accepted
+capacities persist in a sidecar file.  The cluster, gang and
+telemetry layers are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
+import queue
 import shutil
+import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -66,8 +79,19 @@ from repic_tpu_torch.parallel.batching import (
     pad_batch,
     to_device,
 )
+from repic_tpu_torch.runtime import faults
+from repic_tpu_torch.runtime.atomic import atomic_write, file_lock
+from repic_tpu_torch.runtime.journal import RunJournal, error_info
+from repic_tpu_torch.runtime.ladder import (
+    DEFAULT_POLICY,
+    ChunkOutcomes,
+    RetryPolicy,
+    classify_error,
+    solve_host_ladder,
+)
 from repic_tpu_torch.solver.dual import solve_lp_device
 from repic_tpu_torch.utils import box_io
+from repic_tpu_torch.utils.tracing import StageTimer
 
 SOLVERS = ("greedy", "lp", "lp_device", "lp_device_fused", "exact")
 #: the solvers that run inside the device program ("exact" runs the
@@ -257,9 +281,88 @@ def spatial_probe(
 # Last sufficient (max_neighbors, clique_capacity, cell_capacity,
 # partial_capacity) per workload shape, and the last three observed
 # requirements: a repeat shape skips the probes and runs at the lower
-# median of the recent requirements (in memory only).
+# median of the recent requirements.  The accepted configs persist
+# across processes in a sidecar file (_config_cache_path).
 _LAST_GOOD_CONFIG: dict = {}
 _RECENT_REQUIREMENTS: dict = {}
+_CONFIG_CACHE_LOADED = False
+_LAST_PERSISTED: dict = {}
+
+
+def _config_cache_path():
+    """The sidecar of accepted capacity configs,
+    ``~/.cache/repic_tpu_torch/capacity_configs.json`` (the reference's
+    format, a file of its own).  A persisted config is a starting point:
+    the escalation loop still corrects an underestimate with one re-run.
+    ``REPIC_TPU_NO_CACHE`` or ``REPIC_TPU_NO_CONFIG_CACHE`` turn it off
+    (None)."""
+    if os.environ.get("REPIC_TPU_NO_CACHE") or os.environ.get(
+        "REPIC_TPU_NO_CONFIG_CACHE"
+    ):
+        return None
+    return os.path.join(
+        os.path.expanduser("~"), ".cache", "repic_tpu_torch",
+        "capacity_configs.json",
+    )
+
+
+def _load_persisted_configs() -> None:
+    """Fill ``_LAST_GOOD_CONFIG`` from the sidecar, once per process
+    (the latch is set even when the cache is off or the file is
+    unreadable); in-process records win.  A corrupt sidecar is
+    ignored."""
+    global _CONFIG_CACHE_LOADED
+    if _CONFIG_CACHE_LOADED:
+        return
+    _CONFIG_CACHE_LOADED = True
+    path = _config_cache_path()
+    if path is None:
+        return
+    try:
+        with open(path) as f:
+            entries = json.load(f)
+        for e in entries:
+            shape, sizes, threshold, spatial = e["key"]
+            key = (tuple(shape), tuple(sizes), float(threshold),
+                   bool(spatial))
+            _LAST_GOOD_CONFIG.setdefault(key, tuple(e["cfg"]))
+    except (OSError, ValueError, KeyError, TypeError):
+        pass
+
+
+def _persist_config(cfg_key, cfg) -> None:
+    """Write one accepted config through to the sidecar (the last 64
+    keys kept), skipped when this process already wrote the same value.
+    The read-merge-replace cycle runs under ``file_lock`` so concurrent
+    processes keep each other's entries; any failure is swallowed --
+    persistence never takes down a computed result."""
+    if _LAST_PERSISTED.get(cfg_key) == tuple(cfg):
+        return
+    path = _config_cache_path()
+    if path is None:
+        return
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with file_lock(path):
+            entries = []
+            try:
+                with open(path) as f:
+                    loaded = json.load(f)
+                if isinstance(loaded, list):
+                    entries = [e for e in loaded
+                               if isinstance(e, dict) and "key" in e]
+            except (OSError, ValueError):
+                pass
+            ser_key = [list(cfg_key[0]), list(cfg_key[1]), cfg_key[2],
+                       cfg_key[3]]
+            entries = [e for e in entries if e.get("key") != ser_key]
+            entries.append({"key": ser_key, "cfg": list(cfg)})
+            del entries[:-64]
+            with atomic_write(path) as f:
+                json.dump(entries, f)
+        _LAST_PERSISTED[cfg_key] = tuple(cfg)
+    except (OSError, ValueError, TypeError):
+        pass
 
 
 def _next_bucket(x: int) -> int:
@@ -444,6 +547,7 @@ def run_consensus_batch(
         bool(spatial),
     )
     dbatch = to_device(batch, dev)
+    _load_persisted_configs()
     known = _LAST_GOOD_CONFIG.get(cfg_key)
     if spatial:
         # the padded host batch, zero padding included, sets the grid
@@ -499,11 +603,14 @@ def run_consensus_batch(
         del recent[:-3]
         if known is None:
             _LAST_GOOD_CONFIG[cfg_key] = (d, cap, cell_cap, pcap)
+            _persist_config(cfg_key, (d, cap, cell_cap, pcap))
             return res, packed
         by_cost = sorted(
             recent, key=lambda r: (r[0] * r[1] * r[2] * r[3], r)
         )
-        _LAST_GOOD_CONFIG[cfg_key] = by_cost[(len(recent) - 1) // 2]
+        chosen = by_cost[(len(recent) - 1) // 2]
+        _LAST_GOOD_CONFIG[cfg_key] = chosen
+        _persist_config(cfg_key, chosen)
         return res, packed
 
 
@@ -537,51 +644,308 @@ def emit_box_chunk(
     return counts
 
 
-#: device bytes one chunk may hold in its IoU stages
+#: device bytes one chunk may hold in its IoU stages (the default of
+#: ``REPIC_CONSENSUS_CHUNK_BYTES``)
 CHUNK_BYTES = 4e9
 
 
 def _auto_chunk(n_loaded: int, k: int, nb: int) -> int:
-    """Micrograph-chunk size: :data:`CHUNK_BYTES` against ~3 live
-    K x K x N x N float32 IoU stages per micrograph, rounded down to a
-    power of two and clamped to the workload."""
+    """Micrograph-chunk size: ``REPIC_CONSENSUS_CHUNK`` when set, else
+    ``REPIC_CONSENSUS_CHUNK_BYTES`` (default :data:`CHUNK_BYTES`)
+    against ~3 live K x K x N x N float32 IoU stages per micrograph,
+    rounded down to a power of two; clamped to the workload.  The
+    clique product is data-dependent and not estimated: OOM halving in
+    the chunk loop is its backstop."""
+    explicit = os.environ.get("REPIC_CONSENSUS_CHUNK")
+    if explicit:
+        return min(max(int(explicit), 1), max(n_loaded, 1))
+    budget = float(os.environ.get("REPIC_CONSENSUS_CHUNK_BYTES",
+                                  CHUNK_BYTES))
     per_micrograph = 3.0 * k * k * nb * nb * 4
-    chunk = max(int(CHUNK_BYTES // max(per_micrograph, 1.0)), 1)
+    chunk = max(int(budget // max(per_micrograph, 1.0)), 1)
     c = 1
     while c * 2 <= chunk:
         c *= 2
     return min(c, max(n_loaded, 1))
 
 
-def iter_consensus_chunks(
+class ConsensusCancelled(RuntimeError):
+    """A chunk loop stopped by its ``cancel`` poll at a chunk boundary;
+    the message is the reason."""
+
+
+def _iter_chunks_serial(
     loaded,
     box_size,
     *,
+    threshold: float = DEFAULT_THRESHOLD,
+    max_neighbors: int = 16,
+    spatial: bool | None = None,
+    solver: str = "lp_device",
+    use_pallas: bool = False,
+    device=None,
+    extra_device_outputs=None,
+    fetch: bool = False,
+    finish=None,
+    strict: bool = True,
+    policy: RetryPolicy | None = None,
+    outcomes: ChunkOutcomes | None = None,
+    journal: RunJournal | None = None,
+    cancel=None,
     info: dict | None = None,
-    **kwargs,
 ):
     """Run :func:`run_consensus_batch` over memory-bounded chunks of
-    ``loaded`` (``(name, sets)`` pairs, all with the same pickers).
+    ``loaded`` (``(name, sets)`` pairs, all with the same pickers),
+    serially; :func:`iter_consensus_chunks` runs it one chunk ahead.
 
-    Yields ``(part, batch, packed, seconds)`` per chunk: the chunk's
-    pairs, its padded host batch (rows in ``part`` order), the fetched
-    packed array and the seconds the device program and its fetch
-    took.  ``kwargs`` go to :func:`run_consensus_batch`; ``info``
-    receives the chunk size and the particle capacity."""
+    One chunk covering the whole workload pads to one micrograph's
+    multiple; otherwise every chunk pads to the chunk size (one shape,
+    one escalation memo entry).  Failures walk the runtime ladder
+    (:mod:`repic_tpu_torch.runtime.ladder`): a chunk that runs out of
+    memory is halved and retried; in lenient mode (``strict=False``)
+    other errors get bounded-backoff retries, then each micrograph of
+    the chunk runs alone, and one that still fails is quarantined
+    (``outcomes``, ``journal``).  Strict mode runs only the halving
+    rung and raises everything else.  The fault keys are the
+    reference's: ``chunk:{first name}:{len}`` and ``mic:{name}``.
+
+    Args:
+        device: where the chunks run (resolved as by
+            :func:`resolve_device`).
+        fetch: yield the whole result fetched to the host
+            (:func:`_unpack_full_result`); otherwise the device result,
+            with the fetched BOX-writing array
+            (:func:`_pack_box_outputs`) as ``extras``.
+        extra_device_outputs: ``f(batch) -> extras`` run and fetched per
+            chunk with ``fetch`` (the ``--get_cc`` component labels).
+        finish: ``f(part, batch, result, extras) -> (result, extras)``,
+            the host finish of each accepted chunk (the exact rung,
+            the fallback hooks), run here -- in the prefetch worker --
+            outside the ladder: what it raises reaches the consumer.
+        policy: the :class:`RetryPolicy` of the lenient rungs.
+        outcomes: per-micrograph ladder status and quarantines.
+        journal: receives ladder events and quarantines as they happen.
+        cancel: polled before each chunk and each per-micrograph
+            attempt; a truthy return raises :class:`ConsensusCancelled`.
+        info: receives the chunk size (updated when it halves) and the
+            particle capacity.
+
+    Yields:
+        ``(part, batch, result, extras, seconds)`` per chunk: the
+        chunk's pairs, its padded host batch (rows in ``part`` order),
+        the result, the extras, and the seconds of the device program,
+        its fetches and ``finish``.
+    """
+    if extra_device_outputs is not None and not fetch:
+        raise ValueError("extra_device_outputs needs fetch=True")
+    dev = resolve_device(device)
+    policy = policy or DEFAULT_POLICY
+    if outcomes is None:
+        outcomes = ChunkOutcomes()
     k = len(loaded[0][1])
     nb = bucket_size(max(bs.n for _, sets in loaded for bs in sets))
     chunk = _auto_chunk(len(loaded), k, nb)
     if info is not None:
         info.update(chunk=chunk, capacity=nb)
-    for i in range(0, len(loaded), chunk):
-        part = loaded[i : i + chunk]
-        single = chunk >= len(loaded)
-        cbatch = pad_batch(
-            part, pad_micrographs_to=1 if single else chunk, capacity=nb
+
+    def _execute(cbatch):
+        res, packed = run_consensus_batch(
+            cbatch, box_size, threshold=threshold,
+            max_neighbors=max_neighbors, spatial=spatial, solver=solver,
+            use_pallas=use_pallas, device=dev, full=fetch,
         )
-        t = time.time()
-        _res, packed = run_consensus_batch(cbatch, box_size, **kwargs)
-        yield part, cbatch, packed, time.time() - t
+        if not fetch:
+            return res, packed
+        extras = (extra_device_outputs(cbatch)
+                  if extra_device_outputs is not None else None)
+        return _unpack_full_result(packed, k), extras
+
+    def _finished(part, cbatch, res, extras, t1):
+        if finish is not None:
+            res, extras = finish(part, cbatch, res, extras)
+        return part, cbatch, res, extras, time.time() - t1
+
+    def _check_cancel():
+        if cancel is None:
+            return
+        reason = cancel()
+        if reason:
+            raise ConsensusCancelled(
+                reason if isinstance(reason, str) else "cancelled")
+
+    def _fallback(part):
+        """Each micrograph of a failed chunk alone; one that still
+        fails is quarantined instead of raising."""
+        for name, sets in part:
+            _check_cancel()
+            mkey = f"mic:{name}"
+            for attempt in range(policy.max_retries + 1):
+                t1 = time.time()
+                try:
+                    faults.inject("oom", mkey)
+                    faults.inject("io", mkey)
+                    b1 = pad_batch([(name, sets)], pad_micrographs_to=1,
+                                   capacity=nb)
+                    res1, extras1 = _execute(b1)
+                except Exception as e:  # noqa: BLE001 — ladder rung
+                    if attempt < policy.max_retries:
+                        time.sleep(policy.backoff(attempt + 1))
+                        continue
+                    info_ = error_info(e, kind=classify_error(e))
+                    outcomes.quarantined[name] = info_
+                    if journal is not None:
+                        journal.record(name, "quarantined", error=info_,
+                                       stage="consensus")
+                    break
+                outcomes.mark([name], "degraded")
+                yield _finished([(name, sets)], b1, res1, extras1, t1)
+                break
+
+    i = 0
+    attempts = 0  # same-size transient retries of the current chunk
+    while i < len(loaded):
+        _check_cancel()
+        single = chunk >= len(loaded)
+        part = loaded[i : i + chunk]
+        cbatch = pad_batch(part, pad_micrographs_to=1 if single else chunk,
+                           capacity=nb)
+        ckey = f"chunk:{part[0][0]}:{len(part)}"
+        t1 = time.time()
+        try:
+            faults.inject("oom", ckey)
+            faults.inject("io", ckey)
+            res, extras = _execute(cbatch)
+        except Exception as e:  # noqa: BLE001 — routed to the ladder
+            kind = classify_error(e)
+            if kind == "oom" and chunk > 1:
+                # the failed attempt's tensors die with ``e`` at the end
+                # of this block, so the halved retry can reuse them
+                chunk //= 2
+                if info is not None:
+                    info["chunk"] = chunk
+                if journal is not None:
+                    journal.record_event("chunk_halved", chunk=chunk,
+                                         error=str(e)[:200])
+                outcomes.mark((n for n, _ in part), "retried")
+                attempts = 0
+                continue
+            if strict:
+                raise
+            if kind != "oom" and attempts < policy.max_retries:
+                attempts += 1
+                delay = policy.backoff(attempts)
+                if journal is not None:
+                    journal.record_event("chunk_retry", attempt=attempts,
+                                         backoff_s=delay, error=str(e)[:200])
+                outcomes.mark((n for n, _ in part), "retried")
+                time.sleep(delay)
+                continue
+            # the chunk's ladder is spent: each micrograph alone
+            if journal is not None:
+                journal.record_event("per_micrograph_fallback",
+                                     names=[n for n, _ in part],
+                                     error=str(e)[:200])
+            yield from _fallback(part)
+            i += len(part)
+            attempts = 0
+            continue
+        attempts = 0
+        yield _finished(part, cbatch, res, extras, t1)
+        res = extras = None  # hold no chunk's tensors into the next one
+        i += len(part)
+
+
+#: set to 1/true/yes to run the chunk loop without the prefetch worker
+NO_PREFETCH_ENV = "REPIC_TPU_NO_PREFETCH"
+
+
+def _prefetch_disabled() -> bool:
+    val = os.environ.get(NO_PREFETCH_ENV, "").strip().lower()
+    return val in ("1", "true", "yes")
+
+
+def _prefetch_chunks(gen, device: torch.device):
+    """Run ``gen`` one item ahead in a worker thread.
+
+    While the consumer writes chunk *i*, the worker runs chunk *i+1*'s
+    device program and fetch.  ``Queue(maxsize=1)`` bounds the
+    lookahead to one chunk.  The worker is the only thread advancing
+    ``gen``, so the consumer sees the serial sequence.  Torch's
+    per-thread state -- grad mode, the current device and stream --
+    is the caller's in the worker too.  An exception re-raises in the
+    consumer where its chunk would have been yielded; an early
+    ``close()`` stops and joins the worker, which closes ``gen`` in
+    its own thread.
+    """
+    q = queue.Queue(maxsize=1)
+    stop = threading.Event()
+    done = object()
+    grad = torch.is_grad_enabled()
+    stream = (torch.cuda.current_stream(device)
+              if device.type == "cuda" else None)
+
+    def _pump():
+        try:
+            with contextlib.ExitStack() as ctx:
+                ctx.enter_context(torch.set_grad_enabled(grad))
+                if stream is not None:
+                    ctx.enter_context(torch.cuda.stream(stream))
+                while not stop.is_set():
+                    try:
+                        item, err = next(gen), None
+                    except StopIteration:
+                        item, err = done, None
+                    except BaseException as e:  # noqa: BLE001 — re-raised
+                        item, err = done, e
+                    # a bounded put that still sees a consumer's stop
+                    while not stop.is_set():
+                        try:
+                            q.put((item, err), timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if item is done:
+                        return
+        finally:
+            gen.close()
+
+    worker = threading.Thread(target=_pump, name="repic-chunk-prefetch",
+                              daemon=True)
+    worker.start()
+    try:
+        while True:
+            item, err = q.get()
+            if err is not None:
+                raise err
+            if item is done:
+                return
+            yield item
+    finally:
+        stop.set()
+        # unblock a worker parked in q.put
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        worker.join(timeout=30.0)
+
+
+def iter_consensus_chunks(loaded, box_size, *, prefetch: bool | None = None,
+                          **kwargs):
+    """:func:`_iter_chunks_serial` (same keywords and yield contract),
+    by default one chunk ahead in a worker thread
+    (:func:`_prefetch_chunks`).  ``prefetch=None`` prefetches unless
+    ``REPIC_TPU_NO_PREFETCH`` is set; the yielded sequence and the
+    journal are the same either way."""
+    dev = resolve_device(kwargs.pop("device", None))
+    gen = _iter_chunks_serial(loaded, box_size, device=dev, **kwargs)
+    if prefetch is None:
+        prefetch = not _prefetch_disabled()
+    if not prefetch:
+        yield from gen
+        return
+    yield from _prefetch_chunks(gen, dev)
 
 
 def _write_box_file(out_path, rep_xy, conf, rep_slot, box_size,
@@ -693,36 +1057,111 @@ def write_consensus_tables(
                 cells = ["N/A\tN/A"] * k
                 cells[p] = f"{x}\t{y}"
                 rows.append("\t".join(cells) + "\t0.0")
-        with box_io.atomic_write(os.path.join(out_dir, name + ".tsv")) as o:
+        with atomic_write(os.path.join(out_dir, name + ".tsv")) as o:
             o.write("\t".join(pickers) + "\n")
             o.write("\n".join(rows))
         counts[name] = len(chosen)
     return counts
 
 
-def _host_solve_chunk(part, res, capacity, *, budget_s, rungs, device):
-    """Re-solve each micrograph of a fetched chunk on the host ladder
-    (exact, under ``budget_s`` degrading to lp and greedy); ``rungs``
-    receives the rung that solved each.  Returns ``res`` with the
-    ladder's picks."""
-    from repic_tpu_torch.runtime.ladder import solve_host_ladder
-
-    picked_all = np.array(res.picked, dtype=bool)
+def _ladder_row(res, i, capacity, **kw):
+    """Micrograph ``i`` of a host result re-solved on the host ladder
+    (``solve_host_ladder`` keywords in ``kw``): its ``(C,)`` picks and
+    the rung that produced them."""
+    valid = np.asarray(res.valid[i]).astype(bool)
     k = res.member_idx.shape[-1]
+    member = np.asarray(res.member_idx[i])[valid].astype(np.int64)
     offsets = np.arange(k, dtype=np.int64) * int(capacity)
+    vid = member + offsets[None, :] if member.size else member
+    picked_v, used = solve_host_ladder(
+        vid, np.asarray(res.w[i])[valid], k * int(capacity), **kw)
+    row = np.zeros(len(valid), bool)
+    row[np.where(valid)[0]] = picked_v
+    return row, used
+
+
+def _host_solve_chunk(part, res, capacity, *, budget_s, outcomes, device,
+                      strict=False):
+    """Re-solve each micrograph of a fetched chunk on the host ladder
+    (exact, under ``budget_s`` degrading to lp and greedy); the rung
+    that ran goes to ``outcomes.solver``, and a degraded one marks the
+    micrograph ``degraded``.  Returns ``res`` with the ladder's picks.
+
+    An unexpected solver failure (not a spent budget: the ladder takes
+    that) keeps the device program's greedy picks, recorded as the
+    ``greedy`` rung, unless ``strict``, which re-raises."""
+    picked_all = np.array(res.picked, dtype=bool)
     for i, (name, _sets) in enumerate(part):
-        valid = res.valid[i]
-        member = res.member_idx[i][valid].astype(np.int64)
-        vid = member + offsets[None, :] if member.size else member
-        picked_v, used = solve_host_ladder(
-            vid, res.w[i][valid], k * int(capacity),
-            solver="exact", budget_s=budget_s, device=device,
-        )
-        row = np.zeros(picked_all.shape[1], bool)
-        row[np.where(valid)[0]] = picked_v
+        try:
+            row, used = _ladder_row(res, i, capacity, solver="exact",
+                                    budget_s=budget_s, device=device)
+        except Exception:  # noqa: BLE001 — lenient terminal rung
+            if strict:
+                raise
+            outcomes.solver[name] = "greedy"  # the device's picks kept
+            outcomes.mark([name], "degraded")
+            continue
         picked_all[i] = row
-        rungs[name] = used
+        outcomes.solver[name] = used
+        if used != "exact":
+            outcomes.mark([name], "degraded")
     return res._replace(picked=picked_all)
+
+
+def _demote(part, res, capacity, site, ladder_solver, *, outcomes,
+            device, journal, rung, reason):
+    """Each micrograph of ``part`` whose name fires the fault ``site``
+    has its device packing re-solved on the host ladder from
+    ``ladder_solver``: marked degraded, the rung that ran recorded in
+    ``outcomes``, a ``solver_degraded`` event journaled.  ``res`` is a
+    host result; returns ``(res, changed)``."""
+    hit = [(i, name) for i, (name, _sets) in enumerate(part)
+           if faults.check(site, name)]
+    if not hit:
+        return res, False
+    picked_all = np.array(res.picked, dtype=bool)
+    for i, name in hit:
+        picked_all[i], used = _ladder_row(res, i, capacity,
+                                          solver=ladder_solver,
+                                          device=device)
+        outcomes.solver[name] = used
+        outcomes.mark([name], "degraded")
+        if site == "megakernel_fallback":
+            from repic_tpu_torch.ops import megakernel
+
+            megakernel.note_fallback("fault")
+        if journal is not None:
+            journal.record_event("solver_degraded", micrograph=name,
+                                 rung=rung, fallback=used, reason=reason)
+    return res._replace(picked=picked_all), True
+
+
+def _maybe_diverge_fallback(part, res, capacity, *, solver, outcomes,
+                            device, journal=None):
+    """The ``solver_diverge`` site: a named micrograph's ``lp_device``
+    solve reads as not converged and is re-solved on the host ladder
+    from ``lp`` (journaled with ``rung`` the requested solver and
+    ``reason="diverged"``).  A no-op without a fault plan."""
+    if solver not in ("lp_device", "lp_device_fused") \
+            or not faults.active():
+        return res, False
+    return _demote(part, res, capacity, "solver_diverge", "lp",
+                   outcomes=outcomes, device=device, journal=journal,
+                   rung=solver, reason="diverged")
+
+
+def _maybe_megakernel_fallback(part, res, capacity, *, solver, outcomes,
+                               device, journal=None):
+    """The ``megakernel_fallback`` site, under ``lp_device_fused``: a
+    named micrograph's fused packing is re-solved on the host ladder
+    from the staged ``lp_device`` rung (``rung="lp_device_fused"``,
+    ``reason="megakernel_fallback"``) and counted by
+    ``megakernel.note_fallback``.  A no-op without a fault plan."""
+    if solver != "lp_device_fused" or not faults.active():
+        return res, False
+    return _demote(part, res, capacity, "megakernel_fallback", "lp_device",
+                   outcomes=outcomes, device=device, journal=journal,
+                   rung="lp_device_fused", reason="megakernel_fallback")
 
 
 def cc_labels_host(batch: PaddedBatch, box_size, threshold: float,
@@ -775,10 +1214,12 @@ def _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
         )
 
 
-def _run_striped(loaded, out_dir, box_size, stripes, stats, *, threshold,
-                 max_neighbors, num_particles, spatial, solver, dev):
+def _run_striped(loaded, out_dir, box_size, stripes, stats, journal, *,
+                 threshold, max_neighbors, num_particles, spatial, solver,
+                 dev):
     """The striped branch: each micrograph alone through
-    :func:`~repic_tpu_torch.pipeline.giant.run_consensus_giant`."""
+    :func:`~repic_tpu_torch.pipeline.giant.run_consensus_giant`, one
+    journal record each."""
     from repic_tpu_torch.pipeline.giant import run_consensus_giant
 
     compute_s = write_s = 0.0
@@ -799,6 +1240,9 @@ def _run_striped(loaded, out_dir, box_size, stripes, stats, *, threshold,
         )
         write_s += time.time() - t2
         compute_s += t2 - t1
+        journal.record(name, "ok", wall_s=round(time.time() - t1, 6),
+                       solver=solver, out=name + ".box",
+                       particles=stats["particle_counts"][name])
         stats["clique_counts"][name] = g["num_cliques"]
         stats["num_cliques"] += g["num_cliques"]
         giant_stats[name] = {
@@ -825,11 +1269,14 @@ def run_consensus_dir(
     multi_out: bool = False,
     get_cc: bool = False,
     stripes: int | str | None = None,
+    resume: bool = False,
+    strict: bool = False,
+    retry_policy: RetryPolicy | None = None,
     solver_budget_s: float | None = None,
     device=None,
 ) -> dict:
     """Read ``in_dir/<picker>/*.box``, run consensus, write one output
-    per micrograph into ``out_dir`` (deleted first if it exists).
+    per micrograph into ``out_dir`` (deleted first unless ``resume``).
     Micrographs missing from a picker, or empty in one, get an empty
     BOX file.  ``spatial`` as in :func:`run_consensus_batch`, per
     chunk.
@@ -840,31 +1287,117 @@ def run_consensus_dir(
     degrading to lp and greedy (``stats["solver_rungs"]`` names the
     rung of each).  ``stripes`` (an int, or ``"auto"``, which on one
     device means no striping) splits each micrograph into x-stripes.
-    Flags are checked before ``out_dir`` is touched.  Returns run
-    statistics."""
+    Flags are checked before ``out_dir`` is touched.
+
+    The fault-tolerant runtime: every micrograph's outcome goes to
+    ``_journal.jsonl`` and the run configuration to ``_manifest.json``
+    (:mod:`repic_tpu_torch.runtime.journal`); the stage seconds to
+    ``consensus_runtime.tsv``.  By default the run is lenient: a BOX
+    file that cannot be read, or a micrograph that still fails after
+    the chunk ladder (``retry_policy``), is quarantined and the run
+    goes on; ``strict`` fails fast.  ``resume`` keeps ``out_dir`` and
+    processes only the micrographs the journal does not record as
+    done, unless the manifest pins another configuration, which
+    restarts the run from scratch.  Returns run statistics."""
     _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
                  use_pallas)
     dev = resolve_device(device)
+    policy = retry_policy or DEFAULT_POLICY
+    timer = StageTimer()
     t0 = time.time()
     pickers = box_io.discover_picker_dirs(in_dir)
     if not pickers:
         raise ValueError(f"no picker subdirectories in {in_dir}")
     names = box_io.micrograph_names(os.path.join(in_dir, pickers[0]))
-    if os.path.isdir(out_dir):
+    if os.path.isdir(out_dir) and not resume:
         shutil.rmtree(out_dir)
     os.makedirs(out_dir, exist_ok=True)
-    loaded, skipped = [], []
-    for name in names:
-        sets = box_io.load_micrograph_set(in_dir, pickers, name)
-        if sets is None:
+    # what changes the output's content, and the input names: the
+    # performance knobs stay out, so a resumed run may change them
+    run_config = {
+        "in_dir": os.path.abspath(in_dir),
+        "box_size": np.asarray(box_size).tolist(),
+        "threshold": threshold,
+        "num_particles": num_particles,
+        "solver": solver,
+        "multi_out": multi_out,
+        "get_cc": get_cc,
+        "pickers": pickers,
+        "names": names,
+    }
+    journal = RunJournal.open(out_dir, run_config, resume=resume)
+    if resume and not journal.resumed:
+        # --resume found another run (or none): start from scratch, so
+        # no output of the other run survives beside this one's
+        journal.close()
+        shutil.rmtree(out_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        journal = RunJournal.open(out_dir, run_config)
+    try:
+        return _run_journaled(
+            in_dir, out_dir, box_size, pickers, names, journal, timer, t0,
+            threshold=threshold, max_neighbors=max_neighbors,
+            num_particles=num_particles, spatial=spatial, solver=solver,
+            use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
+            stripes=stripes, strict=strict, policy=policy,
+            solver_budget_s=solver_budget_s, dev=dev,
+        )
+    finally:
+        journal.close()
+
+
+def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
+                   timer, t0, *, threshold, max_neighbors, num_particles,
+                   spatial, solver, use_pallas, multi_out, get_cc, stripes,
+                   strict, policy, solver_budget_s, dev):
+    """:func:`run_consensus_dir` once its journal is open."""
+    out_ext = ".tsv" if multi_out else ".box"
+    already_done = set()
+    if journal.resumed:
+        latest = journal.latest()
+        for nm in journal.done_names():
+            out_name = latest[nm].get("out", nm + out_ext)
+            if os.path.exists(os.path.join(out_dir, out_name)):
+                already_done.add(nm)
+    todo = [n for n in names if n not in already_done]
+
+    def _load_one(nm):
+        """One micrograph's BOX files; in lenient mode a read or parse
+        failure is returned, to be quarantined."""
+        try:
+            return box_io.load_micrograph_set(in_dir, pickers, nm)
+        except (box_io.BoxParseError, OSError) as e:
+            if strict:
+                raise
+            return e
+
+    # the native parser releases the GIL: threads overlap the reads;
+    # map keeps the order
+    if len(todo) > 1:
+        workers = min(32, max(4, os.cpu_count() or 4))
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            all_sets = list(ex.map(_load_one, todo))
+    else:
+        all_sets = [_load_one(nm) for nm in todo]
+    loaded, skipped, quarantined = [], [], {}
+    for name, sets in zip(todo, all_sets):
+        if isinstance(sets, BaseException):
+            info = error_info(sets, path=getattr(sets, "path", None),
+                              kind=classify_error(sets))
+            quarantined[name] = info
+            journal.record(name, "quarantined", error=info, stage="load")
+        elif sets is None:
             skipped.append(name)
             box_io.write_empty_box(os.path.join(out_dir, name + ".box"))
+            journal.record(name, "skipped", out=name + ".box")
         else:
             loaded.append((name, sets))
     stats = {
         "pickers": pickers,
         "micrographs": len(names),
         "skipped": skipped,
+        "quarantined": quarantined,
+        "resumed": len(already_done),
         "device": str(dev),
         "solver": solver,
         "multi_out": multi_out,
@@ -877,91 +1410,135 @@ def run_consensus_dir(
     }
     if not loaded:
         stats["total_s"] = time.time() - t0
+        stats["journal"] = journal.summary()
         return stats
+    timer.stages.append(("load", stats["load_s"]))
     if stripes == "auto":
         # the reference stripes only when there are fewer micrographs
         # than devices: never with one device
         stripes = None
     if stripes is not None:
         _run_striped(
-            loaded, out_dir, box_size, stripes, stats,
+            loaded, out_dir, box_size, stripes, stats, journal,
             threshold=threshold, max_neighbors=max_neighbors,
             num_particles=num_particles, spatial=spatial, solver=solver,
             dev=dev,
         )
-        stats["total_s"] = time.time() - t0
-        return stats
+    else:
+        _run_chunked(
+            loaded, out_dir, box_size, pickers, stats, journal,
+            threshold=threshold, max_neighbors=max_neighbors,
+            num_particles=num_particles, spatial=spatial, solver=solver,
+            use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
+            strict=strict, policy=policy, solver_budget_s=solver_budget_s,
+            dev=dev, out_ext=out_ext,
+        )
+    timer.stages.append(("compute", stats["compute_s"]))
+    timer.stages.append(("write", stats["write_s"]))
+    timer.write_tsv(out_dir, "consensus_runtime.tsv")
+    stats["total_s"] = time.time() - t0
+    stats["journal"] = journal.summary()
+    return stats
 
-    def _sink(fname, content):
-        with box_io.atomic_write(os.path.join(out_dir, fname)) as o:
-            o.write(content)
 
+def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
+                 threshold, max_neighbors, num_particles, spatial, solver,
+                 use_pallas, multi_out, get_cc, strict, policy,
+                 solver_budget_s, dev, out_ext):
+    """The batched branch: the chunk engine, one journal record per
+    micrograph, quarantines of the ladder into ``stats``."""
     host_solver = solver == "exact"
     # the exact solver shares the tables' data path: the device runs
     # the greedy program and the host re-solves the fetched result
-    tables = multi_out or get_cc or host_solver
+    want_fetch = multi_out or get_cc or host_solver
     device_solver = "greedy" if host_solver else solver
-    cc_sizes = np.asarray(box_size, np.float32)
-    cc_arg = (torch.from_numpy(cc_sizes).to(dev) if cc_sizes.ndim
-              else float(box_size))
     k = len(loaded[0][1])
+    outcomes = ChunkOutcomes()
+    cc_fn = None
+    if get_cc:
+        cc_sizes = np.asarray(box_size, np.float32)
+        cc_arg = (torch.from_numpy(cc_sizes).to(dev) if cc_sizes.ndim
+                  else float(box_size))
+
+        def cc_fn(b):
+            return cc_labels_host(b, cc_arg, threshold, dev)
+
+    def _finish(part, cbatch, res, extras):
+        """The host side of an accepted chunk, in the chunk engine's
+        thread: the exact rung, then the fault-driven demotions."""
+        if host_solver:
+            res = _host_solve_chunk(
+                part, res, cbatch.capacity, budget_s=solver_budget_s,
+                outcomes=outcomes, device=dev, strict=strict,
+            )
+        if device_solver in ("lp_device", "lp_device_fused") \
+                and faults.active():
+            host = res if want_fetch else _unpack_full_result(
+                _pack_full_result(res).cpu().numpy(), k)
+            kw = dict(solver=device_solver, outcomes=outcomes, device=dev,
+                      journal=journal)
+            host, diverged = _maybe_diverge_fallback(
+                part, host, cbatch.capacity, **kw)
+            host, demoted = _maybe_megakernel_fallback(
+                part, host, cbatch.capacity, **kw)
+            if (diverged or demoted) and not want_fetch:
+                # the fetched BOX array predates the host re-solve
+                extras = extras.copy()
+                extras[:, 1:, _BODY_PICKED] = host.picked
+            res = host
+        return res, extras
+
+    def _sink(fname, content):
+        with atomic_write(os.path.join(out_dir, fname)) as o:
+            o.write(content)
+
     compute_s = write_s = 0.0
-    rungs: dict = {}
     cc_rounds = []
     chunks_info: dict = {}
-    chunks = iter_consensus_chunks(
+    for part, cbatch, res, extra, chunk_s in iter_consensus_chunks(
         loaded, box_size, info=chunks_info,
-        threshold=threshold,
-        max_neighbors=max_neighbors,
-        spatial=spatial,
-        solver=device_solver,
-        use_pallas=use_pallas,
-        device=dev,
-        full=tables,
-    )
-    for part, cbatch, packed, chunk_s in chunks:
-        t1 = time.time()
-        nc = _packed_probes(packed)[:, _HEAD_NC]
-        if tables:
-            res = _unpack_full_result(packed, k)
+        threshold=threshold, max_neighbors=max_neighbors, spatial=spatial,
+        solver=device_solver, use_pallas=use_pallas, device=dev,
+        extra_device_outputs=cc_fn, fetch=want_fetch, finish=_finish,
+        strict=strict, policy=policy, outcomes=outcomes, journal=journal,
+    ):
+        t2 = time.time()
+        if want_fetch:
             cc = None
             if get_cc:
-                cc, rounds = cc_labels_host(cbatch, cc_arg, threshold, dev)
+                cc, rounds = extra
                 cc_rounds.append(rounds)
-            if host_solver:
-                res = _host_solve_chunk(
-                    part, res, cbatch.capacity, budget_s=solver_budget_s,
-                    rungs=rungs, device=dev,
-                )
-            t2 = time.time()
             counts = write_consensus_tables(
                 part, res, cc, out_dir, box_size, pickers,
                 multi_out=multi_out, get_cc=get_cc,
                 num_particles=num_particles,
             )
+            nc = res.num_cliques
         else:
-            t2 = time.time()
-            counts = emit_box_chunk(
-                cbatch, packed, box_size,
-                num_particles=num_particles, sink=_sink,
-            )
+            counts = emit_box_chunk(cbatch, extra, box_size,
+                                    num_particles=num_particles, sink=_sink)
+            nc = _packed_probes(extra)[:, _HEAD_NC]
         write_s += time.time() - t2
-        compute_s += chunk_s + (t2 - t1)
+        compute_s += chunk_s
         stats["particle_counts"].update(counts)
         stats["clique_counts"].update(
             (name, int(c)) for name, c in zip(cbatch.names, nc) if name
         )
-        stats["num_cliques"] += int(nc[: len(part)].sum())
+        stats["num_cliques"] += int(np.sum(nc[: len(part)], dtype=np.int64))
         stats["chunks"] += 1
+        for nm, _sets in part:
+            journal.record(
+                nm, outcomes.status.get(nm, "ok"),
+                wall_s=round(chunk_s / max(len(part), 1), 6),
+                solver=outcomes.solver.get(nm, solver),
+                particles=counts.get(nm), out=nm + out_ext,
+            )
+    # micrographs the ladder quarantined while chunking (journaled as
+    # it happened)
+    stats["quarantined"].update(outcomes.quarantined)
     if host_solver:
-        stats["solver_rungs"] = rungs
+        stats["solver_rungs"] = dict(outcomes.solver)
     if get_cc:
         stats["cc_rounds"] = cc_rounds
-    stats.update(
-        chunk=chunks_info["chunk"],
-        capacity=chunks_info["capacity"],
-        compute_s=compute_s,
-        write_s=write_s,
-        total_s=time.time() - t0,
-    )
-    return stats
+    stats.update(chunk=chunks_info["chunk"], capacity=chunks_info["capacity"],
+                 compute_s=compute_s, write_s=write_s)

@@ -1,0 +1,197 @@
+"""Run journal and manifest: per-micrograph outcomes and ``--resume``
+(the one-host part of ``repic_tpu.runtime.journal``).
+
+A directory run appends one JSON line per micrograph to
+``_journal.jsonl`` in its output directory: the outcome (``ok``,
+``retried``, ``degraded``, ``quarantined``, ``skipped``), the solver
+rung that ran, the output file and, for a quarantined input, a
+structured error.  Run-level events (a halved chunk, a retry, a
+solver demotion) are lines of their own.  ``_manifest.json`` pins the
+run configuration (the flags that change output content, and the
+input names), so ``--resume`` tells "the same run, continue" from "a
+different run in the same directory".
+
+Resume contract:
+
+* a micrograph whose latest status is done (``ok``, ``retried``,
+  ``degraded``, ``skipped``) and whose output file exists is not
+  processed again;
+* a quarantined micrograph, or one without an entry or an output, is;
+* a manifest of another configuration discards the journal.
+
+The journal is flushed per line, and a torn last line (a crash mid
+append) is skipped on read.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+from repic_tpu_torch.runtime.atomic import atomic_write
+
+JOURNAL_NAME = "_journal.jsonl"
+MANIFEST_NAME = "_manifest.json"
+
+STATUS_OK = "ok"
+STATUS_RETRIED = "retried"        # succeeded after at least one retry
+STATUS_DEGRADED = "degraded"      # succeeded on a fallback rung
+STATUS_QUARANTINED = "quarantined"
+STATUS_SKIPPED = "skipped"        # empty output (a picker has no input)
+DONE_STATUSES = frozenset(
+    (STATUS_OK, STATUS_RETRIED, STATUS_DEGRADED, STATUS_SKIPPED)
+)
+
+
+class ManifestMismatch(ValueError):
+    """A manifest pins a different run configuration, where restarting
+    is not safe (a directory shared by several hosts, not ported
+    yet)."""
+
+
+def error_info(exc: BaseException, **extra) -> dict:
+    """JSON-safe description of a failure for the journal."""
+    info = {"type": type(exc).__name__, "message": str(exc)[:500]}
+    info.update(extra)
+    return info
+
+
+class RunJournal:
+    """Append-only JSONL journal with a configuration manifest."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+        self.path = os.path.join(out_dir, JOURNAL_NAME)
+        self.manifest_path = os.path.join(out_dir, MANIFEST_NAME)
+        self.resumed = False
+        self._latest: dict[str, dict] = {}
+        self._events: list[dict] = []
+        self._fh = None
+        # the prefetch worker records ladder events while the consumer
+        # records outcomes: one line per write, under this lock
+        self._wlock = threading.Lock()
+
+    @classmethod
+    def open(cls, out_dir: str, config: dict, *, resume: bool = False):
+        """Open the journal of a run configuration; with ``resume`` and
+        a manifest of the same configuration, load its entries.
+
+        ``config`` must be JSON-serialisable; it is compared after a
+        JSON round trip, so a tuple and a list are the same."""
+        j = cls(out_dir)
+        config = json.loads(json.dumps(config))
+        os.makedirs(out_dir, exist_ok=True)
+        prev = j._read_manifest()
+        if resume and prev is not None and prev.get("config") == config:
+            j.resumed = True
+            j._load_entries()
+        elif os.path.exists(j.path):
+            os.unlink(j.path)  # a stale journal of another run
+        with atomic_write(j.manifest_path) as f:
+            json.dump({"config": config, "created": time.time()}, f,
+                      indent=2)
+        return j
+
+    def close(self) -> None:
+        with self._wlock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def record(self, name: str, status: str, **fields) -> dict:
+        """Append one micrograph's outcome."""
+        entry = {"name": name, "status": status, "ts": time.time()}
+        entry.update(fields)
+        self._append(entry)
+        self._latest[name] = entry
+        return entry
+
+    def record_event(self, event: str, **fields) -> dict:
+        """Append a run-level event (a retry, a halved chunk, ...)."""
+        entry = {"event": event, "ts": time.time()}
+        entry.update(fields)
+        self._append(entry)
+        self._events.append(entry)
+        return entry
+
+    def _append(self, entry: dict) -> None:
+        line = json.dumps(entry) + "\n"
+        with self._wlock:
+            if self._fh is None:
+                self._fh = open(self.path, "at")
+            self._fh.write(line)
+            self._fh.flush()
+
+    def latest(self) -> dict[str, dict]:
+        """The latest entry per micrograph name (events excluded)."""
+        return dict(self._latest)
+
+    def events(self) -> list[dict]:
+        return list(self._events)
+
+    def done_names(self) -> set[str]:
+        """Names whose latest status is done (a quarantined entry is
+        not: resume retries it)."""
+        return {
+            n for n, e in self._latest.items()
+            if e.get("status") in DONE_STATUSES
+        }
+
+    def quarantined(self) -> dict[str, dict]:
+        return {
+            n: e for n, e in self._latest.items()
+            if e.get("status") == STATUS_QUARANTINED
+        }
+
+    def summary(self) -> dict:
+        """Status -> count over the latest entry of every micrograph."""
+        out: dict[str, int] = {}
+        for e in self._latest.values():
+            s = e.get("status", "unknown")
+            out[s] = out.get(s, 0) + 1
+        return out
+
+    def _read_manifest(self):
+        try:
+            with open(self.manifest_path) as f:
+                data = json.load(f)
+            return data if isinstance(data, dict) else None
+        except (OSError, ValueError):
+            return None
+
+    def _load_entries(self) -> None:
+        for entry in _read_entries(self.path):
+            if "name" in entry:
+                self._latest[entry["name"]] = entry
+            elif "event" in entry:
+                self._events.append(entry)
+
+
+def read_journal(out_dir: str) -> list[dict]:
+    """Every entry of a run's journal, a torn last line skipped."""
+    return _read_entries(os.path.join(out_dir, JOURNAL_NAME))
+
+
+def _read_entries(path: str) -> list[dict]:
+    entries: list[dict] = []
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    entries.append(json.loads(line))
+                except ValueError:
+                    continue  # torn trailing line from a crash
+    except OSError:
+        pass
+    return entries

@@ -1,22 +1,97 @@
-"""The host solver ladder and the host liveness rung.
+"""The runtime's retry and degradation ladders.
 
-:func:`solve_host_ladder` solves one packing on the requested rung
-and degrades when a rung cannot deliver: ``exact`` under a budget
-that runs out, or ``lp_device`` whose dual ascent does not converge,
-fall through to LP rounding and then greedy, which always ends.  It
-returns the rung that produced the packing, so a run records where
-each micrograph was solved.  The lp, lp_device and greedy rungs run
-on ``device``; exact is host C++ (or, under a budget, the
-interruptible Python search).
-
-:func:`host_rung` classifies a host from its heartbeat age, for the
-cluster runs that are not ported yet.
+* **compute ladder** (driven by the chunk loop,
+  ``pipeline/consensus.py: _iter_chunks_serial``): a chunk that runs
+  out of device memory is halved; in lenient mode other failures get
+  bounded-backoff retries (:class:`RetryPolicy`), then each micrograph
+  runs alone, and one that still fails is quarantined.
+  :func:`classify_error` picks the rung; :class:`ChunkOutcomes` keeps
+  each micrograph's outcome for the journal.
+* **solver ladder** (:func:`solve_host_ladder`): solves one packing on
+  the requested rung and degrades when a rung cannot deliver --
+  ``exact`` under a budget that runs out, or ``lp_device`` whose dual
+  ascent does not converge, fall through to LP rounding and then
+  greedy, which always ends.  It returns the rung that produced the
+  packing.  The lp, lp_device and greedy rungs run on ``device``;
+  exact is host C++ (or, under a budget, the interruptible Python
+  search).  The ``solver_budget`` and ``solver_diverge`` fault sites
+  (:mod:`~repic_tpu_torch.runtime.faults`) fire here.
+* **host rung** (:func:`host_rung`): a host classified from its
+  heartbeat age, for the cluster runs that are not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
+
+from repic_tpu_torch.runtime import faults
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """Device or host allocator exhaustion: a
+    ``torch.cuda.OutOfMemoryError`` by its type, anything else by its
+    message (an injected ``oom`` says ``RESOURCE_EXHAUSTED``)."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    s = str(e).lower()
+    return "out of memory" in s or "resource_exhausted" in s
+
+
+def classify_error(e: BaseException) -> str:
+    """``oom`` | ``io`` | ``error``: the compute ladder's entry rung."""
+    if is_oom_error(e):
+        return "oom"
+    if isinstance(e, OSError):
+        return "io"
+    return "error"
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded-backoff retry budget for transient failures."""
+
+    max_retries: int = 2          # same-configuration re-attempts
+    backoff_base_s: float = 0.05
+    backoff_cap_s: float = 2.0
+
+    def __post_init__(self):
+        # a negative budget would run no attempt at all and drop
+        # micrographs without a record
+        if self.max_retries < 0:
+            raise ValueError(
+                f"max_retries must be >= 0, got {self.max_retries}"
+            )
+
+    def backoff(self, attempt: int) -> float:
+        """Exponential backoff for the 1-based ``attempt``, capped."""
+        return min(
+            self.backoff_cap_s,
+            self.backoff_base_s * (2.0 ** max(attempt - 1, 0)),
+        )
+
+
+DEFAULT_POLICY = RetryPolicy()
+
+
+@dataclass
+class ChunkOutcomes:
+    """Per-run ladder bookkeeping: the chunk loop fills it, the
+    journaling writer reads it."""
+
+    status: dict = field(default_factory=dict)       # name -> retried|degraded
+    quarantined: dict = field(default_factory=dict)  # name -> error info
+    solver: dict = field(default_factory=dict)       # name -> rung that ran
+
+    def mark(self, names, status: str) -> None:
+        """Record a status; ``degraded`` wins over ``retried``."""
+        for n in names:
+            if status == "retried" and self.status.get(n) == "degraded":
+                continue
+            self.status[n] = status
+
 
 HOST_LIVE = "live"
 HOST_STOPPED = "stopped"      # clean shutdown recorded; no timeout wait
@@ -91,8 +166,12 @@ def solve_host_ladder(
     if len(w) == 0:
         return np.zeros(0, bool), rungs[0]
     for rung in rungs[:-1]:
+        if faults.check("solver_budget", rung):
+            continue  # injected budget exhaustion of this rung
         try:
             if rung == "lp_device":
+                if faults.check("solver_diverge", rung):
+                    continue  # injected dual-ascent divergence
                 st = _solve_device(solve_dual_decomposition, member_vertex,
                                    w, num_vertices, device)
                 if not bool(st.converged[0]):

@@ -20,11 +20,13 @@ descending (stable), weights printed from float32 values.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
+
+from repic_tpu_torch.runtime import faults
+from repic_tpu_torch.runtime.atomic import atomic_write
 
 
 class BoxParseError(ValueError):
@@ -61,8 +63,14 @@ def _is_float(tok) -> bool:
 def read_box(path: str) -> BoxSet:
     """Parse a BOX file; empty files yield an empty :class:`BoxSet`.
     The native parser reads it unless it declines the file; then the
-    line loop does.  A parser that cannot be built raises."""
+    line loop does.  A parser that cannot be built raises.
+
+    Fault sites (key: the path): an injected ``io`` stays an
+    ``OSError``; an injected ``corrupt_box`` surfaces as
+    :class:`BoxParseError`, as a real bad file does."""
+    faults.inject("io", path)
     try:
+        faults.inject("corrupt_box", path)
         arr = _read_box_native(path)
         if arr is not None:
             return arr
@@ -172,28 +180,6 @@ def write_box(path: str, xy, weights, box_size, *,
                             num_particles=num_particles)
     with atomic_write(path) as o:
         o.write(content)
-
-
-@contextlib.contextmanager
-def atomic_write(path: str, mode: str = "wt"):
-    """Write ``path`` (``mode`` ``"wt"`` or ``"wb"``) through a
-    same-directory temp file published with one ``os.replace``: a
-    reader never sees a torn file."""
-    if mode not in ("wt", "wb"):
-        raise ValueError(f"atomic_write requires 'wt' or 'wb', got {mode!r}")
-    tmp = f"{path}.tmp{os.getpid()}"
-    f = open(tmp, mode)
-    try:
-        yield f
-        f.flush()
-        os.fsync(f.fileno())
-    except BaseException:
-        f.close()
-        with contextlib.suppress(OSError):
-            os.unlink(tmp)
-        raise
-    f.close()
-    os.replace(tmp, path)
 
 
 def write_empty_box(path: str) -> None:

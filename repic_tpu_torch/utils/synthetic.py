@@ -285,3 +285,39 @@ def output_digests(out_dir: str, exts=(".box", ".tsv")) -> dict:
                 rows = sum(1 for _ in fh)
             out[f] = {"sha256": file_sha256(path), "rows": rows}
     return out
+
+
+#: what a journal record is compared on (``ts`` and ``wall_s`` are
+#: clocks; ``trace`` ids belong to the telemetry layer)
+JOURNAL_RECORD_KEYS = ("status", "solver", "particles", "out", "stage")
+JOURNAL_ERROR_KEYS = ("type", "kind", "path")
+
+
+def journal_view(out_dir: str, root: str | None = None) -> dict:
+    """A run's ``_journal.jsonl`` as two packages or two machines
+    compare it: each micrograph's records in order (projected to
+    :data:`JOURNAL_RECORD_KEYS` and the error's
+    :data:`JOURNAL_ERROR_KEYS`, the error's path relative to ``root``
+    when given), and the ladder events, clocks dropped, as sorted JSON
+    strings -- the prefetch worker and the consumer write them from
+    two threads.  The reference's ``chunk_dispatches`` events (its
+    dispatch checker) are left out."""
+    import json
+
+    from repic_tpu_torch.runtime.journal import read_journal
+
+    records, events = {}, []
+    for e in read_journal(out_dir):
+        if "name" in e:
+            r = {k: e.get(k) for k in JOURNAL_RECORD_KEYS}
+            err = e.get("error")
+            if err is not None:
+                err = {k: err.get(k) for k in JOURNAL_ERROR_KEYS}
+                if root is not None and err["path"]:
+                    err["path"] = os.path.relpath(err["path"], root)
+            r["error"] = err
+            records.setdefault(e["name"], []).append(r)
+        elif e.get("event") != "chunk_dispatches":
+            ev = {k: v for k, v in e.items() if k not in ("ts", "trace")}
+            events.append(json.dumps(ev, sort_keys=True))
+    return {"records": records, "events": sorted(events)}

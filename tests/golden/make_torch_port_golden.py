@@ -51,7 +51,20 @@ the digests.  Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/golden/make_torch_port_golden.py
 
-``--only flags`` rewrites only ``torch_port_flags_digests.json``.
+And it writes ``tests/golden/torch_port_runtime_digests.json``, the
+fault-tolerant runtime on 10017 (BOX sha256 and rows, and the journal
+projected by :func:`repic_tpu_torch.utils.synthetic.journal_view`):
+
+* ``lenient`` -- ``lp_device_fused`` (megakernel in interpret mode)
+  with ``topaz/Falcon_2012_06_12-15_33_42_0.box`` unreadable and the
+  fault plan :data:`LENIENT_PLAN`: 11 BOX files, the micrograph
+  quarantined, one halved chunk, one demotion;
+* ``resumed`` -- the file repaired, ``resume=True``: all 12;
+* ``sidecar`` -- two runs in chunks of :data:`SIDECAR_CHUNK`, each as a
+  new process (the in-process memo dropped) over one capacity-config
+  sidecar: both runs' digests and the sidecar's entries.
+
+``--only flags`` / ``--only runtime`` rewrite only that file.
 """
 
 import argparse
@@ -89,6 +102,16 @@ TWO_PHASE = {"plain": (False, False), "multi_out": (True, False),
 BACKENDS = ("exact", "greedy", "lp")
 STRIPES = 4
 STRIPED_SOLVERS = ("lp_device", "lp")
+RUNTIME_DIGESTS = os.path.join(REPO, "tests", "golden",
+                               "torch_port_runtime_digests.json")
+#: the 10017 lenient run: the unreadable file and its content
+BAD_BOX = ("topaz", "Falcon_2012_06_12-15_33_42_0")
+BAD_TEXT = "x y\n1 2 3 4 abc\nfoo bar\n"
+LENIENT_SOLVER = "lp_device_fused"
+LENIENT_PLAN = ("oom:chunk:1",
+                "megakernel_fallback:Falcon_2012_06_12-14_33_35_0:1")
+#: micrographs per chunk of the sidecar runs
+SIDECAR_CHUNK = 4
 
 
 def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
@@ -216,6 +239,64 @@ def make_flag_digests(tmp: str) -> dict:
     return golden
 
 
+def make_runtime_digests(tmp: str) -> dict:
+    """The JAX outputs that ``chip_smoke.py`` phase 9 holds the card to."""
+    from repic_tpu.pipeline import consensus as jcons
+    from repic_tpu.runtime import faults as jfaults
+    from repic_tpu_torch.utils.synthetic import journal_view, output_digests
+
+    in_dir = os.path.join(tmp, "rt_in")
+    shutil.copytree(EXAMPLES, in_dir)
+    bad = os.path.join(in_dir, BAD_BOX[0], BAD_BOX[1] + ".box")
+    with open(bad, "w") as f:
+        f.write(BAD_TEXT)
+    out = os.path.join(tmp, "rt_out")
+    golden = {"plan": list(LENIENT_PLAN), "solver": LENIENT_SOLVER,
+              "bad_box": "/".join(BAD_BOX) + ".box", "bad_text": BAD_TEXT}
+    for run, resume in (("lenient", False), ("resumed", True)):
+        if resume:
+            shutil.copy(os.path.join(EXAMPLES, BAD_BOX[0],
+                                     BAD_BOX[1] + ".box"), bad)
+        plan = () if resume else LENIENT_PLAN
+        with jfaults.fault_plan(*plan):
+            st = run_jax_flags(in_dir, out, BOX_SIZE, solver=LENIENT_SOLVER,
+                               resume=resume)
+        golden[run] = {
+            "boxes": output_digests(out, (".box",)),
+            "journal": journal_view(out, in_dir),
+            "quarantined": sorted(st["quarantined"]),
+            "resumed": st["resumed"],
+            "summary": st["journal"],
+        }
+        print(run, st["journal"])
+    # the sidecar: each run as a new process would start
+    home = os.path.join(tmp, "home")
+    saved = {k: os.environ.get(k) for k in
+             ("HOME", "REPIC_TPU_NO_CONFIG_CACHE", "REPIC_CONSENSUS_CHUNK")}
+    os.environ.update(HOME=home, REPIC_CONSENSUS_CHUNK=str(SIDECAR_CHUNK))
+    os.environ.pop("REPIC_TPU_NO_CONFIG_CACHE", None)
+    golden["sidecar"] = {"chunk": SIDECAR_CHUNK}
+    try:
+        for run in ("first", "second"):
+            jcons._LAST_GOOD_CONFIG.clear()
+            jcons._RECENT_REQUIREMENTS.clear()
+            jcons._LAST_PERSISTED.clear()
+            jcons._CONFIG_CACHE_LOADED = False
+            out = os.path.join(tmp, "sc_" + run)
+            jcons.run_consensus_dir(EXAMPLES, out, BOX_SIZE, use_mesh=False)
+            golden["sidecar"][run] = output_digests(out, (".box",))
+        with open(os.path.join(home, ".cache", "repic_tpu",
+                               "capacity_configs.json")) as f:
+            golden["sidecar"]["entries"] = json.load(f)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return golden
+
+
 def write_json(path: str, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1, sort_keys=True)
@@ -295,12 +376,16 @@ def make_digests(tmp: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["flags"])
+    ap.add_argument("--only", choices=["flags", "runtime"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
-    with tempfile.TemporaryDirectory() as tmp:
-        write_json(FLAGS_DIGESTS, make_flag_digests(tmp))
-    if args.only == "flags":
+    if args.only in (None, "runtime"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_json(RUNTIME_DIGESTS, make_runtime_digests(tmp))
+    if args.only in (None, "flags"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_json(FLAGS_DIGESTS, make_flag_digests(tmp))
+    if args.only is not None:
         return 0
     with tempfile.TemporaryDirectory() as tmp:
         write_json(DIGESTS, make_digests(tmp))

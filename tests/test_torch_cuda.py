@@ -15,17 +15,22 @@ The plain versions are themselves held to the JAX package by the other
 
 import os
 
-import numpy as np
-import pytest
-import torch
+# the capacity-config sidecar stays off: a run must not start from the
+# capacities a run of another process left in $HOME (they decide bytes)
+os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
 
-from repic_tpu_torch.ops import iou_pallas as tk
-from repic_tpu_torch.ops import megakernel as tmk
-from repic_tpu_torch.pipeline import consensus as tcons
-from repic_tpu_torch.utils.synthetic import near_tie_packings
-from torch_port_common import (  # noqa: F401
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repic_tpu_torch.ops import iou_pallas as tk  # noqa: E402
+from repic_tpu_torch.ops import megakernel as tmk  # noqa: E402
+from repic_tpu_torch.pipeline import consensus as tcons  # noqa: E402
+from repic_tpu_torch.runtime.journal import read_journal  # noqa: E402
+from repic_tpu_torch.utils.synthetic import near_tie_packings  # noqa: E402
+from torch_port_common import (  # noqa: F401,E402
     GOLDEN_DIR, SETTINGS, clique_inputs, cuda_device, n, neighbor_inputs,
-    solve_inputs, t,
+    solve_inputs, t, write_box_dir,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -378,3 +383,85 @@ def test_components_on_card_match_cpu(cuda_device, k):
         np.testing.assert_array_equal(n(nm_g), n(nm_w))
         np.testing.assert_array_equal(n(lab_g)[n(nm_g)], n(lab_w)[n(nm_w)])
         assert r_g == r_w
+
+
+def _box_bytes(out):
+    return {f: open(os.path.join(out, f), "rb").read()
+            for f in sorted(os.listdir(out)) if f.endswith(".box")}
+
+
+@pytest.mark.cuda
+def test_config_sidecar_is_off_on_the_card(cuda_device):
+    """This file runs without the suite's conftest: the guard above
+    keeps the sidecar off, so the goldens' capacities hold."""
+    assert tcons._config_cache_path() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["lp_device_fused", "lp_device"])
+def test_engine_with_prefetch_gives_the_cpu_bytes(cuda_device, tmp_path,
+                                                  monkeypatch, solver):
+    """10017 in chunks of 4 (three chunks, the worker one ahead) on the
+    card, prefetch on and off: the CPU run's bytes and journal."""
+    monkeypatch.setenv("REPIC_CONSENSUS_CHUNK", "4")
+    runs = {}
+    for label, device, prefetch in (("cpu", "cpu", "1"),
+                                    ("on", cuda_device, ""),
+                                    ("off", cuda_device, "1")):
+        monkeypatch.setenv("REPIC_TPU_NO_PREFETCH", prefetch)
+        tcons._LAST_GOOD_CONFIG.clear()
+        tcons._RECENT_REQUIREMENTS.clear()
+        out = str(tmp_path / label)
+        st = tcons.run_consensus_dir(EXAMPLES, out, int(BOX), solver=solver,
+                                     device=device)
+        assert st["chunks"] == 3
+        runs[label] = (_box_bytes(out), [
+            (e["name"], e["status"], e["particles"])
+            for e in read_journal(out)])
+    assert runs["on"] == runs["cpu"] and runs["off"] == runs["cpu"]
+    assert len(runs["cpu"][0]) == 12
+
+
+@pytest.mark.cuda
+def test_real_card_oom_is_classed_and_halves(cuda_device, tmp_path,
+                                             monkeypatch):
+    """A too-large allocation on the card raises the allocator's
+    ``torch.cuda.OutOfMemoryError``; the engine classes it ``oom``,
+    halves the chunk and writes the bytes of a run that never ran out."""
+    from repic_tpu_torch.runtime.ladder import classify_error
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(1 << 50, dtype=torch.uint8, device=cuda_device)
+    assert classify_error(ei.value) == "oom"
+    data = write_box_dir(tmp_path, m=4)
+    monkeypatch.setenv("REPIC_CONSENSUS_CHUNK", "4")
+    tcons._LAST_GOOD_CONFIG.clear()
+    tcons._RECENT_REQUIREMENTS.clear()
+    ref = str(tmp_path / "ref")
+    tcons.run_consensus_dir(data, ref, 64, device=cuda_device)
+    real = tcons.run_consensus_batch
+    calls = []
+
+    def hungry(batch, *a, **kw):
+        calls.append(batch.xy.shape[0])
+        if batch.xy.shape[0] > 2:
+            torch.empty(1 << 50, dtype=torch.uint8, device=cuda_device)
+        return real(batch, *a, **kw)
+
+    monkeypatch.setattr(tcons, "run_consensus_batch", hungry)
+    tcons._LAST_GOOD_CONFIG.clear()
+    tcons._RECENT_REQUIREMENTS.clear()
+    out = str(tmp_path / "out")
+    st = tcons.run_consensus_dir(data, out, 64, device=cuda_device,
+                                 strict=True)
+    assert calls == [4, 2, 2] and st["chunk"] == 2
+    halved = [e for e in read_journal(out) if e.get("event") == "chunk_halved"]
+    assert [e["chunk"] for e in halved] == [2]
+    assert st["journal"] == {"retried": 4}
+    chunked = str(tmp_path / "chunked")
+    monkeypatch.setenv("REPIC_CONSENSUS_CHUNK", "2")
+    monkeypatch.setattr(tcons, "run_consensus_batch", real)
+    tcons._LAST_GOOD_CONFIG.clear()
+    tcons._RECENT_REQUIREMENTS.clear()
+    tcons.run_consensus_dir(data, chunked, 64, device=cuda_device)
+    assert _box_bytes(out) == _box_bytes(chunked)

@@ -81,3 +81,34 @@ def solve_inputs(c: int, k: int, v: int = 64, seed=None):
     w = rng.uniform(0.1, 1.0, (c,)).astype(np.float32)
     valid = rng.uniform(size=c) > 0.2
     return mv, w, valid
+
+
+# -- the runtime scenarios: one seeded directory through both packages --
+
+
+def write_box_dir(root, m=6, k=3, n=30, seed=0):
+    """The reference runtime tests' seeded picker tree
+    (``tests/test_runtime_resilient.py: _make_dir``): ``m`` micrographs
+    ``mic{i}`` of ``n`` jittered boxes per picker, box 64."""
+    rng = np.random.default_rng(seed)
+    d = os.path.join(str(root), "picks")
+    for p in range(k):
+        os.makedirs(os.path.join(d, f"picker{p}"))
+    for i in range(m):
+        base = rng.uniform(50, 950, size=(n, 2))
+        for p in range(k):
+            jit = rng.normal(0, 10, size=base.shape)
+            conf = rng.uniform(0.1, 1.0, size=n)
+            with open(os.path.join(d, f"picker{p}", f"mic{i}.box"),
+                      "wt") as f:
+                for (x, y), c in zip(base + jit, conf):
+                    f.write(f"{x:.2f}\t{y:.2f}\t64\t64\t{c:.4f}\n")
+    return d
+
+
+def corrupt_box(data, name, picker="picker0",
+                text="x y w h conf\nthis is not a number at all\n"):
+    path = os.path.join(data, picker, name + ".box")
+    with open(path, "wt") as f:
+        f.write(text)
+    return path
