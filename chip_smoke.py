@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6, 7, 8 and 9, print the ``{"kernels": [...]}`` line
+5. after phases 6 to 10, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -86,7 +86,28 @@ Phases, each fatal on failure:
    the wall, ``load_s``, ``compute_s`` and ``write_s``; (d) two
    processes over one capacity-config sidecar in a temporary HOME, both
    runs' BOX files and the sidecar equal to the JAX package's.  Every
-   other phase runs with the sidecar off.
+   other phase runs with the sidecar off;
+10. the observability layer (``tests/golden/
+   torch_port_telemetry_digests.json``): (a) ``consensus`` on 10017
+   with ``--profile DIR --device-time --status-port 0``, fused and
+   ``--pallas``, in a process of its own while a poller reads
+   ``/healthz``, ``/healthz/ready``, ``/status`` and ``/metrics``: the
+   BOX files equal the goldens, the output directory holds the
+   reference's files, the projected counters, spans, trace segments and
+   journal trace ids equal the JAX digest, ``report`` and ``trace``
+   exit 0, the report's profiler section has ``0 < device_busy_s <=
+   wall_s`` and at least the wrappers' launches as device ops, the
+   trace names the run's kernels, and the allocator gauges are set;
+   a fused run in chunks of 2 must answer 200 on all four paths while
+   it runs; (b) telemetry on against ``REPIC_TPU_TELEMETRY``'s off
+   switch on ``synthetic_256``, fused and ``--pallas``,
+   :data:`TELEMETRY_PAIRS` alternating warm pairs each, every run's
+   BOX bytes equal to phase 4's, with the medians and ranges of the
+   wall, ``load_s``, ``compute_s`` and ``write_s``; (c) one
+   ``--device-time --profile`` run of ``k5_mixed``'s 32 golden
+   micrographs and of ``stress_50k``'s 2, held to the JAX digests,
+   with each stage's ``host_s``, ``device_tail_s``, ``device_frac``
+   and the dispatch gap.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -120,8 +141,24 @@ FLAG_DIGESTS = os.path.join(REPO, "tests", "golden",
                             "torch_port_flags_digests.json")
 RUNTIME_DIGESTS = os.path.join(REPO, "tests", "golden",
                                "torch_port_runtime_digests.json")
-#: warm runs per side of phase 9's prefetch on/off comparison
-PREFETCH_PAIRS = 10
+#: warm runs per side of phase 9's prefetch on/off comparison (phase 10
+#: shares the time limit)
+PREFETCH_PAIRS = 5
+#: warm runs per side of phase 10b's telemetry on/off comparison
+TELEMETRY_PAIRS = 10
+TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
+                                 "torch_port_telemetry_digests.json")
+#: the status server's paths phase 10 polls
+STATUS_PATHS = ("/healthz", "/healthz/ready", "/status", "/metrics")
+#: per phase-10 setting: the wrappers whose launches the run must show,
+#: and the kernels its profiler trace must name
+LAUNCH_KEYS = {"lp_device_fused": ("fused_clique_candidates",
+                                   "fused_dual_solve"),
+               "lp_device_pallas": ("topk_neighbors",)}
+TRACE_KERNELS = {"lp_device_fused": ("clique_count_kernel",
+                                     "clique_write_kernel",
+                                     "dual_solve_kernel"),
+                 "lp_device_pallas": ("topk_neighbors_kernel",)}
 #: micrographs in the warm passes of the two dense configurations
 #: (each configuration's full count)
 STRESS_WARM = 128
@@ -937,6 +974,303 @@ def phase_runtime(synth, phase4_outs):
     return rep
 
 
+# -- phase 10: the observability layer ---------------------------------
+
+
+def _serve_poll(proc, seen, status_docs):
+    """Read the CLI's status-server port from its stderr, then poll
+    every path of :data:`STATUS_PATHS` until the process ends; ``seen``
+    gets the HTTP codes per path, ``status_docs`` the ``/status``
+    documents.  Returns the process's stderr."""
+    import urllib.error
+    import urllib.request
+
+    err_lines = []
+    port = None
+    for line in proc.stderr:
+        err_lines.append(line)
+        m = re.search(r"status server: http://127\.0\.0\.1:(\d+)", line)
+        if m:
+            port = int(m.group(1))
+            break
+    # keep draining stderr so the child never blocks on a full pipe
+    import threading
+
+    drain = threading.Thread(target=lambda: err_lines.extend(proc.stderr),
+                             daemon=True)
+    drain.start()
+    while port is not None and proc.poll() is None:
+        for path in STATUS_PATHS:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=2) as r:
+                    code, body = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                code, body = e.code, b""
+            except OSError:
+                continue  # the server is gone: the run is ending
+            seen.setdefault(path, set()).add(code)
+            if path == "/status" and code == 200:
+                status_docs.append(json.loads(body))
+        time.sleep(0.02)  # the child's HTTP thread shares its GIL
+    proc.wait(timeout=600)
+    drain.join(timeout=30)
+    return "".join(err_lines)
+
+
+def _cli_served(label, argv, env):
+    """``python -m repic_tpu_torch ARGV --status-port 0`` in a process
+    of its own, polled while it runs; returns ``(stats, wall_s, seen
+    codes, /status documents)``."""
+    seen, docs = {}, []
+    t = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repic_tpu_torch", *map(str, argv),
+         "--status-port", "0"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    out_lines = []
+    import threading
+
+    reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    err = _serve_poll(proc, seen, docs)
+    reader.join(timeout=30)
+    wall = time.time() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: exit {proc.returncode}\n{err[-3000:]}")
+    return json.loads(out_lines[-1]), wall, seen, docs
+
+
+def _trace_kernels(prof_dir):
+    """The kernel names on the device lanes of the profiler traces
+    under ``prof_dir``, and the labels of the lanes with events."""
+    from repic_tpu_torch.telemetry.devicetime import device_lanes
+
+    names, lanes = set(), set()
+    for d, _, fs in os.walk(prof_dir):
+        for f in fs:
+            if not f.endswith(".trace.json"):
+                continue
+            with open(os.path.join(d, f)) as fh:
+                evs = json.load(fh).get("traceEvents", [])
+            dev = device_lanes(evs)
+            busy = {e.get("pid") for e in evs if e.get("ph") == "X"
+                    and e.get("pid") in dev}
+            lanes |= {str((e.get("args") or {}).get("labels"))
+                      for e in evs if e.get("ph") == "M"
+                      and e.get("pid") in busy
+                      and e.get("name") == "process_labels"}
+            names |= {e.get("name") for e in evs if e.get("ph") == "X"
+                      and e.get("pid") in dev and e.get("cat") == "kernel"}
+    return names, lanes
+
+
+def phase_observability(synth, phase4_outs):
+    """Phase 10: (a) 10017 through the CLI under ``--profile
+    --device-time --status-port 0`` (fused and ``--pallas``), polled
+    while it runs, its files, telemetry, report, trace and profiler
+    trace checked; a chunked fused run for readiness; (b) telemetry on
+    against off on ``synthetic_256``, :data:`TELEMETRY_PAIRS` warm
+    alternating pairs per setting, the bytes of phase 4; (c) the
+    per-stage host/device split of ``k5_mixed``'s and ``stress_50k``'s
+    golden directories."""
+    import contextlib
+    import io
+
+    from repic_tpu_torch import main as cli_main
+    from repic_tpu_torch.telemetry import metrics as tmetrics
+    from repic_tpu_torch.telemetry import probes as tprobes
+    from repic_tpu_torch.telemetry.report import build_report
+    from repic_tpu_torch.utils.synthetic import CELLS, telemetry_view
+    from repic_tpu_torch.utils.tracing import trace_session
+
+    with open(TELEMETRY_DIGESTS) as f:
+        gold = json.load(f)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("REPIC_CONSENSUS_CHUNK", None)
+    rep = {"runs": {}, "launches": {}}
+    # (a) the profiled, device-timed, served runs
+    for setting, flags in (
+        ("lp_device_fused", ["--solver", "lp_device_fused"]),
+        ("lp_device_pallas", ["--solver", "lp_device", "--pallas"]),
+    ):
+        out = os.path.join(WORK, "tlm_" + setting)
+        prof = os.path.join(WORK, "prof_" + setting)
+        st, wall, seen, docs = _cli_served(
+            setting, ["consensus", EXAMPLES, out, BOX, *flags, "--profile",
+                      prof, "--device-time"], env)
+        gdir = os.path.join(GOLDEN, setting)
+        diff = [f for f in sorted(os.listdir(gdir)) if not filecmp.cmp(
+            os.path.join(gdir, f), os.path.join(out, f), shallow=False)]
+        if diff:
+            raise AssertionError(f"phase 10a {setting}: BOX differs: {diff}")
+        want = gold[setting]
+        files = sorted(f for f in os.listdir(out) if not f.endswith(".box"))
+        if files != want["files"]:
+            raise AssertionError(f"phase 10a {setting}: files {files}")
+        view = telemetry_view(out)
+        bad = [k for k in ("metrics", "spans", "trace", "journal")
+               if view[k] != want[k]]
+        if bad:
+            raise AssertionError(
+                f"phase 10a {setting}: {bad} differ from the JAX digest: "
+                + json.dumps({k: view[k] for k in bad})[:1500])
+        for path in STATUS_PATHS:
+            if path != "/healthz/ready" and 200 not in seen.get(path, ()):
+                raise AssertionError(f"phase 10a {setting}: {path} never "
+                                     f"answered 200: {seen}")
+        for argv in (["report", out, "--json"], ["trace", out]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main.main(argv)
+            if rc != 0:
+                raise AssertionError(f"phase 10a {setting}: {argv} -> {rc}")
+        report = build_report(out)
+        trace = report["device_time"].get("trace")
+        launched = sum(v for k, v in st["launches"].items()
+                       if k in LAUNCH_KEYS[setting])
+        if not trace or not (0 < trace["device_busy_s"] <= trace["wall_s"]) \
+                or trace["device_ops"] < launched or launched <= 0:
+            raise AssertionError(f"phase 10a {setting}: trace {trace}, "
+                                 f"launches {st['launches']}")
+        names, lanes = _trace_kernels(prof)
+        missing = [k for k in TRACE_KERNELS[setting]
+                   if not any(k in nm for nm in names)]
+        if missing:
+            raise AssertionError(f"phase 10a {setting}: the profiler trace "
+                                 f"lacks {missing}; has {sorted(names)}")
+        mem = {s["labels"]["stat"]: s["value"] for s in json.load(open(
+            os.path.join(out, "_metrics.json")))["metrics"][
+                "repic_device_memory_bytes"]["samples"]}
+        if not mem.get("bytes_limit") or not mem.get("peak_bytes_in_use"):
+            raise AssertionError(f"phase 10a {setting}: device memory {mem}")
+        rep["runs"][setting] = {
+            "wall_s": wall, "launches": st["launches"], "seen": {
+                k: sorted(v) for k, v in seen.items()},
+            "status_polls": len(docs), "device_time": report["device_time"],
+            "device": report["device"], "device_memory": mem,
+            "trace_kernels": sorted(names), "device_lanes": sorted(lanes),
+        }
+        for k in LAUNCH_KEYS[setting]:
+            rep["launches"][k] = st["launches"][k]
+        log(f"phase 10a: 10017 {setting} (--profile --device-time "
+            f"--status-port 0): 12 BOX files equal the JAX golden; files, "
+            f"counters, spans, trace segments and journal trace ids equal "
+            f"the JAX digest; HTTP codes {rep['runs'][setting]['seen']} over "
+            f"{len(docs)} /status polls; report and trace exit 0; wall "
+            f"{wall:.2f}s (process); launches {st['launches']}")
+        log(f"  profiler trace: device busy {trace['device_busy_s']:.6f}s of "
+            f"{trace['wall_s']:.6f}s wall, {trace['device_ops']} device ops, "
+            f"gap {trace['dispatch_gap_s']:.6f}s; device lanes "
+            f"{sorted(lanes)}; our kernels " + ", ".join(sorted(
+                nm[:60] for nm in names
+                if any(k in nm for k in TRACE_KERNELS[setting]))))
+        for name, s_ in report["device_time"]["stages"].items():
+            log(f"  {name}: host {s_['host_s']:.6f}s, device tail "
+                f"{s_['device_tail_s']:.6f}s (device_frac "
+                f"{s_['device_frac']:.4f}) over {s_['count']}")
+        log(f"  device memory at finish {mem}")
+    # readiness: a fused run in chunks of 2 (six chunks), polled
+    env_c = dict(env, REPIC_CONSENSUS_CHUNK="2")
+    out = os.path.join(WORK, "tlm_chunked")
+    st, wall, seen, docs = _cli_served(
+        "chunked", ["consensus", EXAMPLES, out, BOX, "--solver",
+                    "lp_device_fused"], env_c)
+    gdir = os.path.join(GOLDEN, "lp_device_fused")
+    if any(not filecmp.cmp(os.path.join(gdir, f), os.path.join(out, f),
+                           shallow=False) for f in os.listdir(gdir)):
+        raise AssertionError("phase 10a chunked: BOX differs")
+    for path in STATUS_PATHS:
+        if 200 not in seen.get(path, ()):
+            raise AssertionError(f"phase 10a chunked: {path} never answered "
+                                 f"200: {seen}")
+    done = max(d_.get("micrographs_done", 0) for d_ in docs)
+    rep["chunked"] = {"wall_s": wall, "seen": {k: sorted(v)
+                                               for k, v in seen.items()},
+                      "status_polls": len(docs), "max_done_seen": done}
+    log(f"phase 10a: 10017 fused in chunks of 2 (status server polled): "
+        f"HTTP codes {rep['chunked']['seen']} over {len(docs)} /status "
+        f"polls, up to {done} of 12 micrographs done mid-run; BOX files "
+        f"equal the JAX golden")
+    # (b) telemetry on and off, warm, alternating
+    want_bytes = {}
+    for setting, ref in phase4_outs.items():
+        want_bytes[setting] = {f: open(os.path.join(ref, f), "rb").read()
+                               for f in sorted(os.listdir(ref))
+                               if f.endswith(".box")}
+    rep["telemetry_on_off"] = {}
+    for setting, solver, pallas in (
+        ("lp_device_fused", "lp_device_fused", False),
+        ("lp_device_pallas", "lp_device", True),
+    ):
+        runs = {"on": [], "off": []}
+        clear_memo()
+        run_dir(synth, os.path.join(WORK, "tl_warm"), BOX, solver=solver,
+                use_pallas=pallas)
+        try:
+            for i in range(TELEMETRY_PAIRS):
+                for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                    tmetrics.set_enabled(mode == "on")
+                    tout = os.path.join(WORK, f"tl_{mode}")
+                    st, wall, _ = run_dir(synth, tout, BOX, solver=solver,
+                                          use_pallas=pallas)
+                    got = {f: open(os.path.join(tout, f), "rb").read()
+                           for f in sorted(os.listdir(tout))
+                           if f.endswith(".box")}
+                    if got != want_bytes[setting]:
+                        raise AssertionError(f"telemetry {mode} {setting}: "
+                                             "BOX bytes differ from phase 4's")
+                    if os.path.exists(os.path.join(tout, "_events.jsonl")) \
+                            != (mode == "on"):
+                        raise AssertionError(f"telemetry {mode}: event log")
+                    runs[mode].append({"wall_s": wall, "load_s": st["load_s"],
+                                       "compute_s": st["compute_s"],
+                                       "write_s": st["write_s"]})
+        finally:
+            tmetrics.set_enabled(True)
+        summary = {mode: {k: _spread([r[k] for r in rs]) for k in rs[0]}
+                   for mode, rs in runs.items()}
+        rep["telemetry_on_off"][setting] = {"runs": runs, "summary": summary}
+        for mode in ("on", "off"):
+            log(f"phase 10b: {setting} telemetry {mode}, {TELEMETRY_PAIRS} "
+                f"warm runs of {N_SYNTH}: " + "; ".join(
+                    f"{k} median {v['median']:.4f}s ({v['min']:.4f}-"
+                    f"{v['max']:.4f})" for k, v in summary[mode].items()))
+    log(f"phase 10b: telemetry on and off: {4 * TELEMETRY_PAIRS} runs' BOX "
+        "bytes equal phase 4's")
+    # (c) the per-stage split of the dense configurations
+    with open(DIGESTS) as f:
+        digests = json.load(f)
+    rep["split"] = {}
+    for cell in ("k5_mixed", "stress_50k"):
+        src = os.path.join(WORK, cell + "_golden_in")
+        out = os.path.join(WORK, cell + "_devicetime")
+        prof = os.path.join(WORK, cell + "_prof")
+        with tprobes.device_time(True), trace_session(prof):
+            st, wall, counts = run_dir(src, out, CELLS[cell]["box_size"],
+                                       solver="lp_device")
+        check_digests(f"phase 10c {cell}", out, st,
+                      digests[cell]["settings"]["lp_device"])
+        dt = build_report(out)["device_time"]
+        rep["split"][cell] = {"wall_s": wall, "device_time": dt,
+                              "launches": counts}
+        log(f"phase 10c: {cell} ({digests[cell]['micrographs']} golden "
+            f"micrographs, lp_device, --device-time --profile): wall "
+            f"{wall:.3f}s; dispatch gap (est) {dt.get('dispatch_gap_s')}s")
+        for name, s_ in dt["stages"].items():
+            log(f"  {name}: host {s_['host_s']:.6f}s, device tail "
+                f"{s_['device_tail_s']:.6f}s, device_frac "
+                f"{s_['device_frac']:.4f}, over {s_['count']}")
+        tr = dt.get("trace")
+        if tr:
+            log(f"  profiler trace: device busy {tr['device_busy_s']:.6f}s "
+                f"of {tr['wall_s']:.6f}s, {tr['device_ops']} device ops, "
+                f"gap {tr['dispatch_gap_s']:.6f}s")
+    return rep
+
+
 # -- A/B passes: one tree's directory runs, for a before/after ----------
 
 #: warm synthetic_256 pairs (prefetch on, off) per --passes process
@@ -1357,6 +1691,9 @@ def main() -> int:
     # -- phase 9: the fault-tolerant runtime --------------------------
     phase9 = phase_runtime(synth, outs)
 
+    # -- phase 10: the observability layer ----------------------------
+    phase10 = phase_observability(synth, outs)
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -1383,11 +1720,13 @@ def main() -> int:
         # launches on phase 8's 10017 tables runs, per run
         entry["tables_launches"] = phase8["tables_launches"].get(
             entry["name"], {})
+        # launches in phase 10a's profiled, device-timed 10017 run
+        entry["telemetry_launches"] = phase10["launches"][entry["name"]]
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
-              "phase9": phase9}
+              "phase9": phase9, "phase10": phase10}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -53,6 +54,8 @@ KERNELS = {
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _LIBS: dict = {}
+#: sources this process compiled (a later load of one is no cache hit)
+_BUILT: set = set()
 _LOCK = threading.Lock()
 #: ptxas register/shared-memory report of each build, by source
 BUILD_LOGS: dict = {}
@@ -82,29 +85,34 @@ def _lib_path(name: str) -> str:
 
 
 def _start(name: str):
-    """Start one nvcc build; returns (proc, tmp, out) or None when the
-    library already exists."""
+    """Start one nvcc build; returns (proc, tmp, out, start time) or
+    None when the library already exists."""
     out = _lib_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
+    from repic_tpu_torch.telemetry import probes
+
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    _BUILT.add(name)
+    probes.note_build(time.perf_counter() - t0)
 
 
 def build_all() -> dict:
@@ -119,13 +127,20 @@ def build_all() -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    Loading a library built by an earlier process counts as a
+    persistent-cache hit (:mod:`repic_tpu_torch.telemetry.probes`)."""
+    from repic_tpu_torch.telemetry import probes
+
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
+        t0 = time.perf_counter()
         _finish(name, _start(name))
         lib = ctypes.CDLL(_lib_path(name))
+        if name not in _BUILT:
+            probes.note_cached_load(time.perf_counter() - t0)
         for fn, kinds in KERNELS[name].items():
             f = getattr(lib, fn)
             f.argtypes = [_CTYPES[k] for k in kinds]

@@ -5,7 +5,12 @@ micrograph into ``OUT_DIR`` (deleted first unless ``--resume``) — or,
 with ``--multi_out``, one per-picker TSV — with ``_journal.jsonl``,
 ``_manifest.json`` and ``consensus_runtime.tsv`` beside them, and
 prints the run statistics as one JSON line.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+``--device cpu`` is given.  With telemetry on (the default;
+``REPIC_TPU_TELEMETRY=0`` turns it off) the run also leaves
+``_events.jsonl``, ``_metrics.json`` and ``_metrics.prom``;
+``--profile DIR`` records a profiler trace, ``--device-time`` splits
+every stage into host time and device tail, and ``--status-port PORT``
+serves ``/metrics``, ``/status`` and ``/healthz`` while the run lasts.
 """
 
 import argparse
@@ -126,12 +131,35 @@ def add_arguments(parser):
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="device to run on (default cuda; fails when there is none)",
     )
+    from repic_tpu_torch.commands._observability import (
+        add_observability_arguments,
+    )
+
+    add_observability_arguments(
+        parser, trace_flags=("--profile", "--trace-dir"),
+        trace_dest="profile",
+    )
+    parser.add_argument(
+        "--status-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="serve live observability on 127.0.0.1:PORT while the "
+        "run executes: /metrics (Prometheus exposition of the live "
+        "registry), /status (run id, chunk progress, ladder/"
+        "quarantine tallies), /healthz.  PORT 0 binds an ephemeral "
+        "port (printed on stderr).  Off by default",
+    )
 
 
 def main(args):
+    import sys
+
+    from repic_tpu_torch.commands._observability import observability_scope
     from repic_tpu_torch.ops import iou_pallas, megakernel
     from repic_tpu_torch.pipeline.consensus import run_consensus_dir
     from repic_tpu_torch.runtime.ladder import RetryPolicy
+    from repic_tpu_torch.telemetry.server import maybe_status_server
 
     if args.solver_budget is not None and args.solver != "exact":
         raise SystemExit(
@@ -139,26 +167,32 @@ def main(args):
             "(the device greedy/lp packers take no budget)"
         )
 
-    stats = run_consensus_dir(
-        args.in_dir,
-        args.out_dir,
-        args.box_size,
-        threshold=args.threshold,
-        max_neighbors=args.max_neighbors,
-        num_particles=args.num_particles,
-        spatial={"auto": None, "on": True, "off": False}[args.spatial],
-        solver=args.solver,
-        use_pallas=args.pallas,
-        multi_out=args.multi_out,
-        get_cc=args.get_cc,
-        stripes=args.stripes,
-        resume=args.resume,
-        strict=args.strict,
-        retry_policy=(RetryPolicy(max_retries=args.retries)
-                      if args.retries is not None else None),
-        solver_budget_s=args.solver_budget,
-        device=args.device,
-    )
+    with maybe_status_server(args.status_port) as srv:
+        if srv is not None:
+            print(f"status server: http://127.0.0.1:{srv.port} "
+                  "(/metrics /status /healthz)", file=sys.stderr)
+        with observability_scope(args, args.profile):
+            stats = run_consensus_dir(
+                args.in_dir,
+                args.out_dir,
+                args.box_size,
+                threshold=args.threshold,
+                max_neighbors=args.max_neighbors,
+                num_particles=args.num_particles,
+                spatial={"auto": None, "on": True, "off": False}[
+                    args.spatial],
+                solver=args.solver,
+                use_pallas=args.pallas,
+                multi_out=args.multi_out,
+                get_cc=args.get_cc,
+                stripes=args.stripes,
+                resume=args.resume,
+                strict=args.strict,
+                retry_policy=(RetryPolicy(max_retries=args.retries)
+                              if args.retries is not None else None),
+                solver_budget_s=args.solver_budget,
+                device=args.device,
+            )
     stats["launches"] = {
         "topk_neighbors": iou_pallas.LAUNCHES,
         **megakernel.LAUNCHES,

@@ -2,8 +2,8 @@
 
 Each command module exposes ``add_arguments(parser)`` and
 ``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
-directory consensus) and the two-phase pair ``get_cliques`` +
-``run_ilp``.
+directory consensus), the two-phase pair ``get_cliques`` +
+``run_ilp``, and ``report`` / ``trace`` over a run's directory.
 """
 
 import argparse
@@ -16,6 +16,8 @@ COMMANDS = {
     "consensus": "repic_tpu_torch.commands.consensus",
     "get_cliques": "repic_tpu_torch.commands.get_cliques",
     "run_ilp": "repic_tpu_torch.commands.run_ilp",
+    "report": "repic_tpu_torch.commands.report",
+    "trace": "repic_tpu_torch.commands.trace",
 }
 
 

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -40,8 +41,14 @@ def _lib_path(stem: str) -> str:
 
 
 def _build(stem: str) -> str:
+    """The library's path, compiled first when it is not on disk; the
+    build or the cached load is counted by the telemetry probes."""
+    from repic_tpu_torch.telemetry import probes
+
+    t0 = time.perf_counter()
     out = _lib_path(stem)
     if os.path.exists(out):
+        probes.note_cached_load(time.perf_counter() - t0)
         return out
     cxx = shutil.which("g++")
     if cxx is None:
@@ -59,6 +66,7 @@ def _build(stem: str) -> str:
             f"g++ failed for native/{stem}.cpp:\n{proc.stderr}"
         )
     os.replace(tmp, out)
+    probes.note_build(time.perf_counter() - t0)
     return out
 
 

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repic_tpu_torch import _build
+from repic_tpu_torch import _build, telemetry
 from repic_tpu_torch.ops.cliques import (
     CliqueSet,
     _assemble_block,
@@ -63,6 +63,27 @@ SOLVE_CHAIN = None
 _SOLVE_SMEM_LIMIT = 220_000
 
 
+# the reference's registry counters (its names and help strings)
+_PROGRAMS = telemetry.counter(
+    "repic_megakernel_programs_total",
+    "coalesced chunks executed by the fused megakernel program",
+)
+_DISPATCHES_AVOIDED = telemetry.counter(
+    "repic_megakernel_dispatches_avoided_total",
+    "separately-dispatched stage boundaries (neighbor search, clique "
+    "join, compaction, solve -> one fused program) avoided by "
+    "megakernel chunks",
+)
+_FALLBACKS = telemetry.counter(
+    "repic_megakernel_fallbacks_total",
+    "chunks demoted from the fused megakernel to the staged rung",
+)
+
+#: stage boundaries of the staged chain that the fused program folds
+#: away per chunk (neighbor search | join | compaction | solve -> 1)
+STAGED_CHAIN_STAGES = 4
+
+
 def fused_eligible(
     k: int, n: int, max_neighbors: int, *, spatial_grid=None
 ) -> bool:
@@ -78,13 +99,24 @@ def fused_eligible(
 
 
 def note_demotion() -> None:
+    """Count one accepted chunk outside the fused envelope (the
+    reference's ``envelope`` fallback)."""
     global DEMOTIONS
     DEMOTIONS += 1
+    _FALLBACKS.inc(reason="envelope")
 
 
 def note_fallback(reason: str) -> None:
     """Count one demotion off the fused rung (``FALLBACKS``)."""
     FALLBACKS[reason] = FALLBACKS.get(reason, 0) + 1
+    _FALLBACKS.inc(reason=reason)
+
+
+def note_fused_chunk(n_micrographs: int) -> None:
+    """Count one accepted chunk that ran the fused program."""
+    _PROGRAMS.inc()
+    if n_micrographs > 0:
+        _DISPATCHES_AVOIDED.inc(STAGED_CHAIN_STAGES - 1)
 
 
 def _dims(n, k, max_neighbors, clique_capacity):

@@ -22,7 +22,19 @@ import math
 import numpy as np
 import torch
 
+from repic_tpu_torch import telemetry
+
 _INT_MAX = torch.iinfo(torch.int32).max
+
+# how often the exact rung holds (the reference's counters)
+_BUDGET_EXCEEDED = telemetry.counter(
+    "repic_solver_budget_exceeded_total",
+    "exact-solve budget exhaustions (kind=wall|nodes)",
+)
+_NODE_LIMIT_FALLBACKS = telemetry.counter(
+    "repic_solver_node_limit_fallbacks_total",
+    "silent per-component greedy fallbacks after a node-limit hit",
+)
 
 
 def solve_greedy(
@@ -273,6 +285,7 @@ def solve_exact_py(
 
     for cid in range(n_comp):
         if deadline is not None and _time.monotonic() > deadline:
+            _BUDGET_EXCEEDED.inc(kind="wall")
             raise SolverBudgetExceeded(
                 "exact solve exceeded its wall-clock budget "
                 f"({cid}/{n_comp} components searched)"
@@ -304,6 +317,7 @@ def solve_exact_py(
             nodes_visited += 1
             if nodes_visited > node_limit:
                 if raise_on_limit:
+                    _BUDGET_EXCEEDED.inc(kind="nodes")
                     raise SolverBudgetExceeded(
                         f"exact solve exceeded its node budget "
                         f"({node_limit} nodes)"
@@ -315,7 +329,8 @@ def solve_exact_py(
                 and nodes_visited % 64 == 0
                 and _time.monotonic() > deadline
             ):
-                    raise SolverBudgetExceeded(
+                _BUDGET_EXCEEDED.inc(kind="wall")
+                raise SolverBudgetExceeded(
                     "exact solve exceeded its wall-clock budget "
                     f"(component {cid}, {nodes_visited} nodes)"
                 )
@@ -339,6 +354,7 @@ def solve_exact_py(
                 )
             )
         if aborted:
+            _NODE_LIMIT_FALLBACKS.inc()
             if fallback_log is not None:
                 fallback_log.append(
                     {"component": int(cid), "cliques": int(n)}

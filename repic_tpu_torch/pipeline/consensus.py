@@ -36,8 +36,16 @@ load in a thread pool, a bad one is quarantined; the chunk engine
 retries, falls back to single micrographs and quarantines, one chunk
 ahead in a worker thread (:func:`iter_consensus_chunks`); every
 outcome is journaled, ``resume`` continues a run, and accepted
-capacities persist in a sidecar file.  The cluster, gang and
-telemetry layers are not ported yet.
+capacities persist in a sidecar file.
+
+The telemetry layer (:mod:`repic_tpu_torch.telemetry`) instruments the
+run as the reference does: ``_events.jsonl`` with the ``load``,
+``consensus_chunk``, ``consensus_dispatch``, ``write`` (and
+``host_solve``, ``consensus_micrograph``) spans, the reference's
+counters in ``_metrics.json`` / ``_metrics.prom``, a synthetic root
+trace with the ``load`` / ``compile`` / ``execute`` / ``emit``
+segments in ``_trace.jsonl``, and the ``/status`` progress of the
+status server.  The cluster and gang layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repic_tpu_torch import telemetry
 from repic_tpu_torch.ops.cliques import (
     DEFAULT_THRESHOLD,
     compact_cliques,
@@ -89,9 +98,63 @@ from repic_tpu_torch.runtime.ladder import (
     classify_error,
     solve_host_ladder,
 )
-from repic_tpu_torch.solver.dual import solve_lp_device
+from repic_tpu_torch.solver.dual import note_program_solves, solve_lp_device
+from repic_tpu_torch.telemetry import events as tlm_events
+from repic_tpu_torch.telemetry import probes as tlm_probes
+from repic_tpu_torch.telemetry import server as tlm_server
+from repic_tpu_torch.telemetry import trace as tlm_trace
 from repic_tpu_torch.utils import box_io
-from repic_tpu_torch.utils.tracing import StageTimer
+from repic_tpu_torch.utils.tracing import StageTimer, annotate
+
+_log = tlm_events.get_logger("consensus")
+
+# the reference's instruments, their names and help strings unchanged
+_ESCALATIONS = telemetry.counter(
+    "repic_consensus_capacity_escalations_total",
+    "batch re-runs forced by capacity-probe overflow "
+    "(each costs one fresh XLA compile)",
+)
+_CHUNK_HALVINGS = telemetry.counter(
+    "repic_consensus_chunk_halvings_total",
+    "OOM-driven micrograph-chunk halvings",
+)
+_CHUNKS = telemetry.counter(
+    "repic_consensus_chunks_total",
+    "consensus chunk executions",
+)
+_PREFETCHED_CHUNKS = telemetry.counter(
+    "repic_consensus_prefetched_chunks_total",
+    "chunks produced by the one-deep prefetch worker while the "
+    "consumer was still emitting the previous chunk (device compute "
+    "overlapped with host BOX emission)",
+)
+_MICROGRAPHS = telemetry.counter(
+    "repic_consensus_micrographs_total",
+    "micrographs processed by directory-scale consensus runs",
+)
+_PROGRAM_HITS = telemetry.counter(
+    "repic_program_cache_hits_total",
+    "consensus batch executions whose program signature was already "
+    "compiled this process (warm path)",
+)
+_PROGRAM_MISSES = telemetry.counter(
+    "repic_program_cache_misses_total",
+    "consensus batch executions that compiled a new program "
+    "signature (cold path: trace + XLA compile)",
+)
+#: the (configuration, input shape) signatures this process has run
+_PROGRAM_SIGNATURES: set = set()
+
+
+def program_signature(threshold, d, cap, grid, cell_cap, solver,
+                      use_pallas, pcap, shape) -> tuple:
+    """The static signature of one batch program: the configuration and
+    the input shape (the reference's key, its mesh flag always off)."""
+    return (
+        float(threshold), int(d), int(cap), False,
+        None if grid is None else int(grid), int(cell_cap),
+        str(solver), bool(use_pallas), int(pcap), tuple(shape),
+    )
 
 SOLVERS = ("greedy", "lp", "lp_device", "lp_device_fused", "exact")
 #: the solvers that run inside the device program ("exact" runs the
@@ -563,32 +626,60 @@ def run_consensus_batch(
         d = _next_bucket(max(int(adj.max()), 2))
     if known is not None:
         d, cap, cell_cap, pcap = known
+    pack = _pack_full_result if full else _pack_box_outputs
+    n_real = sum(1 for n in batch.names if n)
     while True:
-        res = consensus_one(
-            dbatch.xy, dbatch.conf, dbatch.mask, box_arg,
-            threshold=threshold,
-            max_neighbors=d,
-            clique_capacity=cap,
-            spatial_grid=grid,
-            cell_capacity=cell_cap,
-            solver=solver,
-            use_pallas=use_pallas,
-            partial_capacity=pcap,
-        )
-        pack = _pack_full_result if full else _pack_box_outputs
-        packed = pack(res).cpu().numpy()
+        sig = program_signature(threshold, d, cap, grid, cell_cap, solver,
+                                use_pallas, pcap, batch.xy.shape)
+        if sig in _PROGRAM_SIGNATURES:
+            _PROGRAM_HITS.inc()
+        else:
+            _PROGRAM_SIGNATURES.add(sig)
+            _PROGRAM_MISSES.inc()
+        # The span closes after the launches and before the blocking
+        # fetch: under --device-time its host_s is the host's issue
+        # work and its device_tail_s the chunk's device execution (the
+        # fetch would drain the device before the span closed).
+        with tlm_events.span("consensus_dispatch",
+                             micrographs=int(batch.xy.shape[0]),
+                             capacity=batch.capacity):
+            res = consensus_one(
+                dbatch.xy, dbatch.conf, dbatch.mask, box_arg,
+                threshold=threshold,
+                max_neighbors=d,
+                clique_capacity=cap,
+                spatial_grid=grid,
+                cell_capacity=cell_cap,
+                solver=solver,
+                use_pallas=use_pallas,
+                partial_capacity=pcap,
+            )
+            out = pack(res)
+            tlm_probes.note_dispatch()
+        packed = out.cpu().numpy()
+        telemetry.record_transfer(packed.nbytes)
         probes = _packed_probes(packed).max(axis=0)
         d, cap, cell_cap, pcap, retry = escalate_capacities(
             probes, d, cap, cell_cap, pcap, has_grid=grid is not None
         )
         if retry:
+            _ESCALATIONS.inc()
+            tlm_events.event(
+                "capacity_escalated",
+                max_neighbors=d, clique_capacity=cap,
+                cell_capacity=cell_cap, partial_capacity=pcap,
+            )
             continue
+        if solver in ("lp_device", "lp_device_fused"):
+            note_program_solves(n_real)
         if solver == "lp_device_fused":
             from repic_tpu_torch.ops import megakernel
 
             k, n = batch.xy.shape[1], batch.xy.shape[2]
             if not megakernel.fused_eligible(k, n, d, spatial_grid=grid):
                 megakernel.note_demotion()
+            else:
+                megakernel.note_fused_chunk(n_real)
         # this batch's exact requirement; a probe that means nothing on
         # this path (no grid, no staged join) keeps the running value
         max_adj, n_cliques, max_cell, max_part = (int(v) for v in probes)
@@ -749,16 +840,18 @@ def _iter_chunks_serial(
         info.update(chunk=chunk, capacity=nb)
 
     def _execute(cbatch):
-        res, packed = run_consensus_batch(
-            cbatch, box_size, threshold=threshold,
-            max_neighbors=max_neighbors, spatial=spatial, solver=solver,
-            use_pallas=use_pallas, device=dev, full=fetch,
-        )
-        if not fetch:
-            return res, packed
-        extras = (extra_device_outputs(cbatch)
-                  if extra_device_outputs is not None else None)
-        return _unpack_full_result(packed, k), extras
+        # a named range in a --profile trace
+        with annotate("consensus_batch"):
+            res, packed = run_consensus_batch(
+                cbatch, box_size, threshold=threshold,
+                max_neighbors=max_neighbors, spatial=spatial, solver=solver,
+                use_pallas=use_pallas, device=dev, full=fetch,
+            )
+            if not fetch:
+                return res, packed
+            extras = (extra_device_outputs(cbatch)
+                      if extra_device_outputs is not None else None)
+            return _unpack_full_result(packed, k), extras
 
     def _finished(part, cbatch, res, extras, t1):
         if finish is not None:
@@ -782,11 +875,14 @@ def _iter_chunks_serial(
             for attempt in range(policy.max_retries + 1):
                 t1 = time.time()
                 try:
-                    faults.inject("oom", mkey)
-                    faults.inject("io", mkey)
-                    b1 = pad_batch([(name, sets)], pad_micrographs_to=1,
-                                   capacity=nb)
-                    res1, extras1 = _execute(b1)
+                    with tlm_events.span("consensus_micrograph",
+                                         micrograph=name, attempt=attempt,
+                                         capacity=nb):
+                        faults.inject("oom", mkey)
+                        faults.inject("io", mkey)
+                        b1 = pad_batch([(name, sets)],
+                                       pad_micrographs_to=1, capacity=nb)
+                        res1, extras1 = _execute(b1)
                 except Exception as e:  # noqa: BLE001 — ladder rung
                     if attempt < policy.max_retries:
                         time.sleep(policy.backoff(attempt + 1))
@@ -812,15 +908,22 @@ def _iter_chunks_serial(
         ckey = f"chunk:{part[0][0]}:{len(part)}"
         t1 = time.time()
         try:
-            faults.inject("oom", ckey)
-            faults.inject("io", ckey)
-            res, extras = _execute(cbatch)
+            # the padded capacity: device time is reported per capacity
+            with tlm_events.span("consensus_chunk", micrographs=len(part),
+                                 capacity=cbatch.capacity):
+                faults.inject("oom", ckey)
+                faults.inject("io", ckey)
+                res, extras = _execute(cbatch)
+            _CHUNKS.inc()
         except Exception as e:  # noqa: BLE001 — routed to the ladder
             kind = classify_error(e)
             if kind == "oom" and chunk > 1:
                 # the failed attempt's tensors die with ``e`` at the end
                 # of this block, so the halved retry can reuse them
                 chunk //= 2
+                _CHUNK_HALVINGS.inc()
+                _log.info("consensus chunk exhausted device memory; "
+                          f"retrying at {chunk} micrographs/chunk")
                 if info is not None:
                     info["chunk"] = chunk
                 if journal is not None:
@@ -909,16 +1012,24 @@ def _prefetch_chunks(gen, device: torch.device):
         finally:
             gen.close()
 
-    worker = threading.Thread(target=_pump, name="repic-chunk-prefetch",
-                              daemon=True)
+    # the worker's spans and journal records keep the caller's trace
+    worker = threading.Thread(target=tlm_trace.thread_target(_pump),
+                              name="repic-chunk-prefetch", daemon=True)
     worker.start()
     try:
+        first = True
         while True:
+            # a chunk already queued when the consumer comes back for it
+            # was computed while the previous one was emitted
+            ready = not first and not q.empty()
             item, err = q.get()
             if err is not None:
                 raise err
             if item is done:
                 return
+            if ready:
+                _PREFETCHED_CHUNKS.inc()
+            first = False
             yield item
     finally:
         stop.set()
@@ -1177,6 +1288,7 @@ def cc_labels_host(batch: PaddedBatch, box_size, threshold: float,
     )
     lab = torch.where(node_mask, labels, torch.full_like(labels, -1))
     lab = lab.cpu().numpy()
+    telemetry.record_transfer(lab.nbytes)
     return (lab, lab >= 0), rounds
 
 
@@ -1216,21 +1328,28 @@ def _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
 
 def _run_striped(loaded, out_dir, box_size, stripes, stats, journal, *,
                  threshold, max_neighbors, num_particles, spatial, solver,
-                 dev):
+                 dev, run_tlm):
     """The striped branch: each micrograph alone through
     :func:`~repic_tpu_torch.pipeline.giant.run_consensus_giant`, one
-    journal record each."""
+    journal record each; the sinks and ``/status`` refresh per
+    micrograph."""
     from repic_tpu_torch.pipeline.giant import run_consensus_giant
 
     compute_s = write_s = 0.0
     giant_stats = {}
     for name, sets in loaded:
         t1 = time.time()
-        g = run_consensus_giant(
-            sets, box_size, n_stripes=stripes, threshold=threshold,
-            max_neighbors=max_neighbors, spatial=spatial, solver=solver,
-            device=dev,
-        )
+        with tlm_events.span("consensus_micrograph", micrograph=name,
+                             striped=True):
+            g = run_consensus_giant(
+                sets, box_size, n_stripes=stripes, threshold=threshold,
+                max_neighbors=max_neighbors, spatial=spatial,
+                solver=solver, device=dev,
+            )
+        _MICROGRAPHS.inc()
+        # a striped micrograph's execute includes its first-use builds
+        tlm_trace.add_segment("execute", t1, time.time() - t1,
+                              micrograph=name, striped=True)
         t2 = time.time()
         sel = g["picked"]
         stats["particle_counts"][name] = _write_box_file(
@@ -1250,6 +1369,18 @@ def _run_striped(loaded, out_dir, box_size, stripes, stats, journal, *,
             "stripe_capacity": g["stripe_capacity"],
             "config": list(g["config"]),
         }
+        telemetry.flush_run(run_tlm)
+        tlm_server.set_ready(True)
+        done = len(stats["particle_counts"])
+        tlm_server.set_status(
+            phase="running",
+            chunks_done=done,
+            micrographs_done=stats["resumed"] + done
+            + len(stats["skipped"]) + len(stats["quarantined"]),
+            quarantined=len(stats["quarantined"]),
+        )
+        tlm_trace.add_segment("emit", t2, time.time() - t2,
+                              micrograph=name)
     stats.update(stripes=stripes, giant=giant_stats, compute_s=compute_s,
                  write_s=write_s)
     return stats
@@ -1333,6 +1464,21 @@ def run_consensus_dir(
         shutil.rmtree(out_dir)
         os.makedirs(out_dir, exist_ok=True)
         journal = RunJournal.open(out_dir, run_config)
+    # the event log and the metric sinks live next to the journal
+    run_tlm = telemetry.start_run(out_dir)
+    run_id = run_tlm.log.run_id if run_tlm.log is not None else None
+    # a synthetic root trace, unless the caller runs this inside one
+    trace_ctx = trace_token = None
+    if tlm_trace.current() is None:
+        trace_ctx = tlm_trace.start(out_dir, kind="cli", run_id=run_id)
+        trace_token = tlm_trace.activate(trace_ctx)
+    tlm_server.set_status(
+        run_id=run_id,
+        out_dir=os.path.abspath(out_dir),
+        phase="loading",
+        micrographs_total=len(names),
+        chunks_done=0,
+    )
     try:
         return _run_journaled(
             in_dir, out_dir, box_size, pickers, names, journal, timer, t0,
@@ -1340,17 +1486,27 @@ def run_consensus_dir(
             num_particles=num_particles, spatial=spatial, solver=solver,
             use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
             stripes=stripes, strict=strict, policy=policy,
-            solver_budget_s=solver_budget_s, dev=dev,
+            solver_budget_s=solver_budget_s, dev=dev, run_tlm=run_tlm,
         )
     finally:
+        # a raising run still restores the previous event log and
+        # writes its sinks
         journal.close()
+        telemetry.finish_run(run_tlm)
+        if trace_token is not None:
+            tlm_trace.deactivate(trace_token)
+            trace_ctx.close()
+        # winding down: readiness off, liveness stays up
+        tlm_server.set_ready(False)
+        tlm_server.set_status(phase="finished")
 
 
 def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
                    timer, t0, *, threshold, max_neighbors, num_particles,
                    spatial, solver, use_pallas, multi_out, get_cc, stripes,
-                   strict, policy, solver_budget_s, dev):
-    """:func:`run_consensus_dir` once its journal is open."""
+                   strict, policy, solver_budget_s, dev, run_tlm):
+    """:func:`run_consensus_dir` once its journal and telemetry are
+    open."""
     out_ext = ".tsv" if multi_out else ".box"
     already_done = set()
     if journal.resumed:
@@ -1373,12 +1529,14 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
 
     # the native parser releases the GIL: threads overlap the reads;
     # map keeps the order
-    if len(todo) > 1:
-        workers = min(32, max(4, os.cpu_count() or 4))
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            all_sets = list(ex.map(_load_one, todo))
-    else:
-        all_sets = [_load_one(nm) for nm in todo]
+    with tlm_trace.segment("load", micrographs=len(todo)), \
+            tlm_events.span("load", micrographs=len(todo)):
+        if len(todo) > 1:
+            workers = min(32, max(4, os.cpu_count() or 4))
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                all_sets = list(ex.map(_load_one, todo))
+        else:
+            all_sets = [_load_one(nm) for nm in todo]
     loaded, skipped, quarantined = [], [], {}
     for name, sets in zip(todo, all_sets):
         if isinstance(sets, BaseException):
@@ -1422,7 +1580,7 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             loaded, out_dir, box_size, stripes, stats, journal,
             threshold=threshold, max_neighbors=max_neighbors,
             num_particles=num_particles, spatial=spatial, solver=solver,
-            dev=dev,
+            dev=dev, run_tlm=run_tlm,
         )
     else:
         _run_chunked(
@@ -1431,7 +1589,7 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             num_particles=num_particles, spatial=spatial, solver=solver,
             use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
             strict=strict, policy=policy, solver_budget_s=solver_budget_s,
-            dev=dev, out_ext=out_ext,
+            dev=dev, out_ext=out_ext, run_tlm=run_tlm,
         )
     timer.stages.append(("compute", stats["compute_s"]))
     timer.stages.append(("write", stats["write_s"]))
@@ -1444,9 +1602,11 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
 def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
                  threshold, max_neighbors, num_particles, spatial, solver,
                  use_pallas, multi_out, get_cc, strict, policy,
-                 solver_budget_s, dev, out_ext):
+                 solver_budget_s, dev, out_ext, run_tlm):
     """The batched branch: the chunk engine, one journal record per
-    micrograph, quarantines of the ladder into ``stats``."""
+    micrograph, quarantines of the ladder into ``stats``; per chunk the
+    ``compile`` / ``execute`` / ``emit`` trace segments, a sink flush
+    and the ``/status`` progress."""
     host_solver = solver == "exact"
     # the exact solver shares the tables' data path: the device runs
     # the greedy program and the host re-solves the fetched result
@@ -1467,14 +1627,18 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
         """The host side of an accepted chunk, in the chunk engine's
         thread: the exact rung, then the fault-driven demotions."""
         if host_solver:
-            res = _host_solve_chunk(
-                part, res, cbatch.capacity, budget_s=solver_budget_s,
-                outcomes=outcomes, device=dev, strict=strict,
-            )
+            with tlm_events.span("host_solve", micrographs=len(part)):
+                res = _host_solve_chunk(
+                    part, res, cbatch.capacity, budget_s=solver_budget_s,
+                    outcomes=outcomes, device=dev, strict=strict,
+                )
         if device_solver in ("lp_device", "lp_device_fused") \
                 and faults.active():
-            host = res if want_fetch else _unpack_full_result(
-                _pack_full_result(res).cpu().numpy(), k)
+            host = res
+            if not want_fetch:
+                full = _pack_full_result(res).cpu().numpy()
+                telemetry.record_transfer(full.nbytes)
+                host = _unpack_full_result(full, k)
             kw = dict(solver=device_solver, outcomes=outcomes, device=dev,
                       journal=journal)
             host, diverged = _maybe_diverge_fallback(
@@ -1495,6 +1659,12 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
     compute_s = write_s = 0.0
     cc_rounds = []
     chunks_info: dict = {}
+    # a chunk's window since the previous chunk's emit: the build
+    # seconds inside it are its compile segment (with the program-cache
+    # deltas), the rest its execute segment
+    t_mark = time.time()
+    comp_mark = tlm_probes.compile_seconds()
+    hits_mark, miss_mark = _PROGRAM_HITS.value(), _PROGRAM_MISSES.value()
     for part, cbatch, res, extra, chunk_s in iter_consensus_chunks(
         loaded, box_size, info=chunks_info,
         threshold=threshold, max_neighbors=max_neighbors, spatial=spatial,
@@ -1502,24 +1672,45 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
         extra_device_outputs=cc_fn, fetch=want_fetch, finish=_finish,
         strict=strict, policy=policy, outcomes=outcomes, journal=journal,
     ):
-        t2 = time.time()
-        if want_fetch:
-            cc = None
-            if get_cc:
-                cc, rounds = extra
-                cc_rounds.append(rounds)
-            counts = write_consensus_tables(
-                part, res, cc, out_dir, box_size, pickers,
-                multi_out=multi_out, get_cc=get_cc,
-                num_particles=num_particles,
+        chunk_i = stats["chunks"]
+        t_now = time.time()
+        chunk_wall = max(t_now - t_mark, float(chunk_s), 0.0)
+        compile_seg = min(
+            max(tlm_probes.compile_seconds() - comp_mark, 0.0), chunk_wall)
+        hits_now, miss_now = _PROGRAM_HITS.value(), _PROGRAM_MISSES.value()
+        if (chunk_i == 0 or compile_seg > 0.0 or hits_now > hits_mark
+                or miss_now > miss_mark):
+            tlm_trace.add_segment(
+                "compile", t_now - chunk_wall, compile_seg, chunk=chunk_i,
+                cache_hits=int(hits_now - hits_mark),
+                cache_misses=int(miss_now - miss_mark),
             )
-            nc = res.num_cliques
-        else:
-            counts = emit_box_chunk(cbatch, extra, box_size,
-                                    num_particles=num_particles, sink=_sink)
-            nc = _packed_probes(extra)[:, _HEAD_NC]
-        write_s += time.time() - t2
+        tlm_trace.add_segment(
+            "execute", t_now - chunk_wall + compile_seg,
+            chunk_wall - compile_seg, chunk=chunk_i,
+            micrographs=len(part), capacity=cbatch.capacity,
+        )
+        t_emit0 = time.time()
+        with tlm_events.span("write", micrographs=len(part)):
+            if want_fetch:
+                cc = None
+                if get_cc:
+                    cc, rounds = extra
+                    cc_rounds.append(rounds)
+                counts = write_consensus_tables(
+                    part, res, cc, out_dir, box_size, pickers,
+                    multi_out=multi_out, get_cc=get_cc,
+                    num_particles=num_particles,
+                )
+                nc = res.num_cliques
+            else:
+                counts = emit_box_chunk(cbatch, extra, box_size,
+                                        num_particles=num_particles,
+                                        sink=_sink)
+                nc = _packed_probes(extra)[:, _HEAD_NC]
+        write_s += time.time() - t_emit0
         compute_s += chunk_s
+        _MICROGRAPHS.inc(len(part))
         stats["particle_counts"].update(counts)
         stats["clique_counts"].update(
             (name, int(c)) for name, c in zip(cbatch.names, nc) if name
@@ -1533,6 +1724,30 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
                 solver=outcomes.solver.get(nm, solver),
                 particles=counts.get(nm), out=nm + out_ext,
             )
+        telemetry.flush_run(run_tlm)
+        ladder_tally: dict = {}
+        for st in outcomes.status.values():
+            ladder_tally[st] = ladder_tally.get(st, 0) + 1
+        # progress over the whole run: resumed, skipped and quarantined
+        # micrographs count as processed
+        q_count = len(stats["quarantined"]) + len(outcomes.quarantined)
+        tlm_server.set_ready(True)  # the first chunk is done: warmed up
+        tlm_server.set_status(
+            phase="running",
+            chunks_done=stats["chunks"],
+            micrographs_done=stats["resumed"]
+            + len(stats["particle_counts"]) + len(stats["skipped"])
+            + q_count,
+            quarantined=q_count,
+            ladder=ladder_tally,
+        )
+        # emit covers the chunk's host tail (write, journal, flush), so
+        # the segments stay contiguous and sum to the run's wall
+        tlm_trace.add_segment("emit", t_emit0, time.time() - t_emit0,
+                              chunk=chunk_i, micrographs=len(part))
+        t_mark = time.time()
+        comp_mark = tlm_probes.compile_seconds()
+        hits_mark, miss_mark = hits_now, miss_now
     # micrographs the ladder quarantined while chunking (journaled as
     # it happened)
     stats["quarantined"].update(outcomes.quarantined)

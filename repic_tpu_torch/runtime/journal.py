@@ -20,13 +20,24 @@ Resume contract:
 * a manifest of another configuration discards the journal.
 
 The journal is flushed per line, and a torn last line (a crash mid
-append) is skipped on read.
+append) is skipped on read.  A record written while a trace context
+is active (:mod:`repic_tpu_torch.telemetry.trace`) carries its
+``trace`` id.
+
+The read half of the reference's multi-host scheme is here too, for
+``report`` and ``trace``: per-host artifact names
+(:func:`sanitize_host_id`, :func:`host_artifact_paths`), the merged
+read over every ``_journal[.<host>].jsonl`` (:func:`read_all_journals`,
+:func:`fold_latest`, :class:`MergedJournalReader`).  Writing a shared
+run directory from several hosts is not ported.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import re
 import threading
 import time
 
@@ -34,6 +45,48 @@ from repic_tpu_torch.runtime.atomic import atomic_write
 
 JOURNAL_NAME = "_journal.jsonl"
 MANIFEST_NAME = "_manifest.json"
+
+
+def sanitize_host_id(host: str) -> str:
+    """A host id as a file-name component: one alphabet, so the id in
+    a record and the id in a file name never diverge."""
+    safe = re.sub(r"[^A-Za-z0-9._-]", "_", str(host))
+    if not safe:
+        raise ValueError(f"empty host id after sanitizing {host!r}")
+    return safe
+
+
+def host_journal_name(host: str) -> str:
+    """Per-host journal file name."""
+    return f"_journal.{sanitize_host_id(host)}.jsonl"
+
+
+def host_artifact_paths(
+    out_dir: str, base_name: str
+) -> list[tuple[str | None, str]]:
+    """``(host, path)`` for every instance of a per-run artifact: the
+    single-process ``<stem><ext>`` (host ``None``) first, then every
+    per-host ``<stem>.<host><ext>``, hosts sorted.  Shared by the
+    journal, the event log, the metric snapshots and the trace."""
+    stem, ext = os.path.splitext(base_name)
+    out: list[tuple[str | None, str]] = []
+    base = os.path.join(out_dir, base_name)
+    if os.path.exists(base):
+        out.append((None, base))
+    for path in sorted(
+        glob.glob(os.path.join(out_dir, f"{stem}.*{ext}"))
+    ):
+        host = os.path.basename(path)[len(stem) + 1 : -len(ext)]
+        out.append((host, path))
+    return out
+
+
+def journal_paths(out_dir: str) -> list[str]:
+    """Every journal file of a run, single-process one first."""
+    return [
+        path
+        for _, path in host_artifact_paths(out_dir, JOURNAL_NAME)
+    ]
 
 STATUS_OK = "ok"
 STATUS_RETRIED = "retried"        # succeeded after at least one retry
@@ -123,6 +176,12 @@ class RunJournal:
         return entry
 
     def _append(self, entry: dict) -> None:
+        # lazy: the telemetry package imports this module
+        from repic_tpu_torch.telemetry.trace import current_trace_id
+
+        tid = current_trace_id()
+        if tid is not None and "trace" not in entry:
+            entry["trace"] = tid
         line = json.dumps(entry) + "\n"
         with self._wlock:
             if self._fh is None:
@@ -195,3 +254,84 @@ def _read_entries(path: str) -> list[dict]:
     except OSError:
         pass
     return entries
+
+
+def _gang_epoch_of(entry: dict) -> "int | None":
+    """The entry's ``gang_epoch``, or None for a record without one."""
+    raw = entry.get("gang_epoch")
+    if raw is None:
+        return None
+    try:
+        return int(raw)
+    except (TypeError, ValueError):
+        return None
+
+
+def fold_latest(entries) -> dict[str, dict]:
+    """Last-writer-wins fold of timestamp-sorted micrograph records,
+    except that between two records with ``gang_epoch`` the one of the
+    lower epoch loses (a fenced straggler's late write)."""
+    latest: dict[str, dict] = {}
+    for entry in entries:
+        name = entry.get("name")
+        if name is None:
+            continue
+        prev = latest.get(name)
+        if prev is not None:
+            pe, ce = _gang_epoch_of(prev), _gang_epoch_of(entry)
+            if pe is not None and ce is not None and ce < pe:
+                continue
+        latest[name] = entry
+    return latest
+
+
+def read_all_journals(out_dir: str) -> list[dict]:
+    """Every entry of every journal file of a run, stable-sorted by
+    timestamp (each file's torn last line skipped)."""
+    entries: list[dict] = []
+    for path in journal_paths(out_dir):
+        entries.extend(_read_entries(path))
+    entries.sort(key=lambda e: float(e.get("ts", 0.0)))
+    return entries
+
+
+def merged_latest(out_dir: str) -> dict[str, dict]:
+    """The latest entry per micrograph over all journal files."""
+    return fold_latest(read_all_journals(out_dir))
+
+
+class MergedJournalReader:
+    """Incremental merge-on-read for pollers: re-parses only the files
+    whose size changed since the last call (journals are append-only).
+    ``base_name`` picks the artifact family (the run journal, or a
+    serve journal keyed by ``job``, which callers fold themselves)."""
+
+    def __init__(self, out_dir: str, base_name: str = JOURNAL_NAME):
+        self.out_dir = out_dir
+        self.base_name = base_name
+        self._cache: dict[str, tuple[int, list[dict]]] = {}
+        #: bumped whenever a file is (re)parsed or dropped
+        self.version = 0
+
+    def entries(self) -> list[dict]:
+        """Every entry of the family, stable-sorted by timestamp."""
+        entries: list[dict] = []
+        for _host, path in host_artifact_paths(
+            self.out_dir, self.base_name
+        ):
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                if self._cache.pop(path, None) is not None:
+                    self.version += 1
+                continue
+            cached = self._cache.get(path)
+            if cached is None or cached[0] != size:
+                self._cache[path] = (size, _read_entries(path))
+                self.version += 1
+            entries.extend(self._cache[path][1])
+        entries.sort(key=lambda e: float(e.get("ts", 0.0)))
+        return entries
+
+    def latest(self) -> dict[str, dict]:
+        return fold_latest(self.entries())

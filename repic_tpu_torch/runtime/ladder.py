@@ -158,8 +158,17 @@ def solve_host_ladder(
         solve_greedy,
         solve_lp_rounding,
     )
-    from repic_tpu_torch.solver.dual import solve_dual_decomposition
+    from repic_tpu_torch.solver.dual import (
+        record_device_solve,
+        solve_dual_decomposition,
+    )
+    # lazy: the telemetry package imports the runtime
+    from repic_tpu_torch.telemetry import metrics as _metrics
 
+    rung_total = _metrics.counter(
+        "repic_solver_rung_total",
+        "host solver ladder rungs that actually produced a packing",
+    )
     member_vertex = np.asarray(member_vertex)
     w = np.asarray(w)
     rungs = SOLVER_LADDER[solver]
@@ -174,6 +183,7 @@ def solve_host_ladder(
                     continue  # injected dual-ascent divergence
                 st = _solve_device(solve_dual_decomposition, member_vertex,
                                    w, num_vertices, device)
+                record_device_solve(st)
                 if not bool(st.converged[0]):
                     continue
                 picked = st.picked[0].cpu().numpy()
@@ -187,6 +197,7 @@ def solve_host_ladder(
                     fallback_log=fallback_log,
                 )
                 if fallback_log:
+                    rung_total.inc(rung="exact_fallback")
                     return picked, "exact_fallback"
             else:
                 picked = _solve_device(solve_lp_rounding, member_vertex, w,
@@ -194,9 +205,11 @@ def solve_host_ladder(
                 picked = picked.cpu().numpy()
         except SolverBudgetExceeded:
             continue
+        rung_total.inc(rung=rung)
         return picked, rung
     picked = _solve_device(solve_greedy, member_vertex, w, num_vertices,
                            device)[0]
+    rung_total.inc(rung=rungs[-1])
     return picked.cpu().numpy(), rungs[-1]
 
 

@@ -31,10 +31,32 @@ from typing import NamedTuple
 
 import torch
 
+from repic_tpu_torch import telemetry
 from repic_tpu_torch.ops.solver import solve_greedy
 
 DEFAULT_NUM_ITERS = 200
 DEFAULT_TOL = 1e-3
+
+_DEVICE_SOLVES = telemetry.counter(
+    "repic_solver_device_solves_total",
+    "micrograph packings solved by the on-device dual-decomposition "
+    "rung (lp_device)",
+)
+_DEVICE_ITERS = telemetry.counter(
+    "repic_solver_device_iterations_total",
+    "dual-ascent iterations consumed by instrumented lp_device solves",
+)
+_DEVICE_REPAIRS = telemetry.counter(
+    "repic_solver_device_repairs_total",
+    "cliques re-admitted by the lp_device greedy repair pass",
+)
+# the gap is a unitless certificate in [0, 1], not a latency
+_DEVICE_GAP = telemetry.histogram(
+    "repic_solver_device_convergence_gap",
+    "per-solve duality-gap certificate of the lp_device rung "
+    "((dual bound - objective) / dual bound)",
+    buckets=(1e-5, 1e-4, 1e-3, 3e-3, 0.01, 0.03, 0.1, 0.3, 1.0),
+)
 
 # A float32 sum of more than this many terms is taken as sums of
 # windows of this many, recursively (XLA's CPU tree reduction).
@@ -211,3 +233,25 @@ def solve_lp_device(
         member_vertex, w, valid, num_vertices,
         num_iters=num_iters, tol=tol,
     ).picked
+
+
+def record_device_solve(stats: DualSolveStats) -> None:
+    """Fold the diagnostics of fetched solves (a batch of any size)
+    into the device-solver telemetry: the host boundaries (the ladder's
+    ``lp_device`` rung) call it; the chunk program counts its solves
+    with :func:`note_program_solves` and keeps the diagnostics on the
+    device."""
+    iters = stats.iterations.cpu().tolist()
+    repairs = stats.repairs.cpu().tolist()
+    gaps = stats.gap.cpu().tolist()
+    for it, rep, gap in zip(iters, repairs, gaps):
+        _DEVICE_SOLVES.inc()
+        _DEVICE_ITERS.inc(int(it))
+        _DEVICE_REPAIRS.inc(int(rep))
+        _DEVICE_GAP.observe(float(gap))
+
+
+def note_program_solves(n: int) -> None:
+    """Count ``n`` micrograph solves run inside a chunk program."""
+    if n > 0:
+        _DEVICE_SOLVES.inc(int(n))

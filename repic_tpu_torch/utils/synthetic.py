@@ -13,6 +13,7 @@ padded to N = 1024).  Files use the 5-column ``x y w h conf`` format.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 
 import numpy as np
@@ -288,7 +289,7 @@ def output_digests(out_dir: str, exts=(".box", ".tsv")) -> dict:
 
 
 #: what a journal record is compared on (``ts`` and ``wall_s`` are
-#: clocks; ``trace`` ids belong to the telemetry layer)
+#: clocks; of the ``trace`` id only its presence)
 JOURNAL_RECORD_KEYS = ("status", "solver", "particles", "out", "stage")
 JOURNAL_ERROR_KEYS = ("type", "kind", "path")
 
@@ -298,12 +299,11 @@ def journal_view(out_dir: str, root: str | None = None) -> dict:
     compare it: each micrograph's records in order (projected to
     :data:`JOURNAL_RECORD_KEYS` and the error's
     :data:`JOURNAL_ERROR_KEYS`, the error's path relative to ``root``
-    when given), and the ladder events, clocks dropped, as sorted JSON
-    strings -- the prefetch worker and the consumer write them from
-    two threads.  The reference's ``chunk_dispatches`` events (its
-    dispatch checker) are left out."""
-    import json
-
+    when given, and whether it carries a ``trace`` id), and the ladder
+    events, clocks dropped and the trace id reduced to its presence, as
+    sorted JSON strings -- the prefetch worker and the consumer write
+    them from two threads.  The reference's ``chunk_dispatches`` events
+    (its dispatch checker) are left out."""
     from repic_tpu_torch.runtime.journal import read_journal
 
     records, events = {}, []
@@ -316,8 +316,92 @@ def journal_view(out_dir: str, root: str | None = None) -> dict:
                 if root is not None and err["path"]:
                     err["path"] = os.path.relpath(err["path"], root)
             r["error"] = err
+            r["trace"] = "trace" in e
             records.setdefault(e["name"], []).append(r)
         elif e.get("event") != "chunk_dispatches":
             ev = {k: v for k, v in e.items() if k not in ("ts", "trace")}
+            ev["trace"] = "trace" in e
             events.append(json.dumps(ev, sort_keys=True))
     return {"records": records, "events": sorted(events)}
+
+
+def trace_view(out_dir: str, late_compile: bool = True) -> list:
+    """``_trace.jsonl`` as two packages compare it: its records in
+    order, the root as ``trace:<kind>`` and each segment as its name
+    with ``[chunk]`` (ids and clocks dropped).  ``late_compile=False``
+    leaves out the ``compile`` segments of chunks after the first: the
+    run writes one when the chunk's window saw a build or a
+    program-cache hit or miss, and which window sees them depends on
+    the prefetch worker's timing and, in the reference, on XLA's
+    compiles."""
+    from repic_tpu_torch.telemetry.trace import read_trace
+
+    out = []
+    for rec in read_trace(out_dir):
+        if rec.get("ev") == "trace":
+            out.append(f"trace:{rec.get('kind')}")
+        elif rec.get("ev") == "segment":
+            seg, chunk = rec.get("seg"), rec.get("chunk")
+            if seg == "compile" and chunk and not late_compile:
+                continue
+            out.append(seg if chunk is None else f"{seg}[{chunk}]")
+    return out
+
+
+#: registry entries that :func:`telemetry_view` leaves out: builds and
+#: cached loads (a process's history), the prefetch overlap (timing),
+#: status-server requests (the poller's pace)
+TELEMETRY_SKIP = frozenset((
+    "repic_persistent_cache_hits_total",
+    "repic_consensus_prefetched_chunks_total",
+    "repic_http_request_seconds",
+))
+#: the probe gauges that count logical events
+TELEMETRY_GAUGES = ("repic_device_dispatches_total",
+                    "repic_transfer_fetches_total")
+
+
+def telemetry_view(out_dir: str) -> dict:
+    """A telemetry-on run's artifacts as two packages compare them,
+    clocks, ids, memory and builds left out:
+
+    * ``metrics``: from ``_metrics.json``, every counter's value and
+      every histogram's count per label set (not :data:`TELEMETRY_SKIP`),
+      and the gauges of :data:`TELEMETRY_GAUGES`;
+    * ``spans``: ``"name<parent"`` (the parent span's name, or
+      nothing) -> count, from ``_events.jsonl``;
+    * ``trace``: :func:`trace_view`;
+    * ``journal``: per micrograph, and per ladder event, whether each
+      record carries a ``trace`` id."""
+    from repic_tpu_torch.runtime.journal import read_journal
+    from repic_tpu_torch.telemetry.events import read_events
+    from repic_tpu_torch.telemetry.sinks import read_metrics_json
+
+    metrics = {}
+    for name, entry in sorted(read_metrics_json(out_dir).items()):
+        if name in TELEMETRY_SKIP or not entry["samples"]:
+            continue
+        kind = entry["kind"]
+        if kind == "gauge" and name not in TELEMETRY_GAUGES:
+            continue
+        metrics[name] = {
+            json.dumps(sm["labels"], sort_keys=True):
+                sm["count"] if kind == "histogram" else sm["value"]
+            for sm in entry["samples"]
+        }
+    spans = [r for r in read_events(out_dir) if r.get("ev") == "span"]
+    names = {r["span"]: r["name"] for r in spans}
+    span_counts: dict = {}
+    for r in spans:
+        key = f"{r['name']}<{names.get(r.get('parent'), '')}"
+        span_counts[key] = span_counts.get(key, 0) + 1
+    journal: dict = {"records": {}, "events": []}
+    for e in read_journal(out_dir):
+        if "name" in e:
+            journal["records"].setdefault(e["name"], []).append(
+                "trace" in e)
+        elif e.get("event") != "chunk_dispatches":
+            journal["events"].append([e["event"], "trace" in e])
+    journal["events"].sort()
+    return {"metrics": metrics, "spans": dict(sorted(span_counts.items())),
+            "trace": trace_view(out_dir), "journal": journal}

@@ -64,7 +64,24 @@ projected by :func:`repic_tpu_torch.utils.synthetic.journal_view`):
   new process (the in-process memo dropped) over one capacity-config
   sidecar: both runs' digests and the sidecar's entries.
 
-``--only flags`` / ``--only runtime`` rewrite only that file.
+And it writes ``tests/golden/torch_port_telemetry_digests.json``: the
+telemetry of a default run (telemetry on) of 10017 under each setting
+of :data:`TELEMETRY_SETTINGS`, projected by
+:func:`repic_tpu_torch.utils.synthetic.telemetry_view` -- the counters
+and probe gauges that count logical events (chunks, micrographs,
+escalations, halvings, dispatches, fetches, program-cache hits and
+misses, solver and ladder counters), each histogram's count, the span
+names with their counts and parents, the trace segments in order, and
+which journal records carry a ``trace`` id -- plus the run's file
+names.  Clocks, ids, device memory and the build counters (a
+process's history: the port counts its ``nvcc``/``g++`` builds where
+the reference counts XLA compiles) are left out, and so is the
+prefetched-chunk count (it follows the worker's timing).  Each run
+starts from an empty program-signature set and escalation memo, as a
+new process does.
+
+``--only flags`` / ``--only runtime`` / ``--only telemetry`` rewrite
+only that file.
 """
 
 import argparse
@@ -112,6 +129,10 @@ LENIENT_PLAN = ("oom:chunk:1",
                 "megakernel_fallback:Falcon_2012_06_12-14_33_35_0:1")
 #: micrographs per chunk of the sidecar runs
 SIDECAR_CHUNK = 4
+TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
+                                 "torch_port_telemetry_digests.json")
+#: settings (names of ``SETTINGS``) of the telemetry digests
+TELEMETRY_SETTINGS = ("lp_device", "lp_device_pallas", "lp_device_fused")
 
 
 def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
@@ -297,6 +318,33 @@ def make_runtime_digests(tmp: str) -> dict:
     return golden
 
 
+def make_telemetry_digests(tmp: str) -> dict:
+    """The JAX telemetry that the port's CPU run and ``chip_smoke.py``
+    phase 10 are held to."""
+    from repic_tpu.pipeline import consensus as jcons
+    from repic_tpu.telemetry import metrics
+    from repic_tpu_torch.utils.synthetic import telemetry_view
+
+    was = metrics.enabled()
+    metrics.set_enabled(True)
+    golden = {}
+    try:
+        for setting in TELEMETRY_SETTINGS:
+            solver, pallas = SETTINGS[setting]
+            jcons._PROGRAM_SIGNATURES.clear()
+            out = os.path.join(tmp, "tlm_" + setting)
+            run_jax_flags(EXAMPLES, out, BOX_SIZE, solver=solver,
+                          use_pallas=pallas)
+            view = telemetry_view(out)
+            view["files"] = sorted(f for f in os.listdir(out)
+                                   if not f.endswith(".box"))
+            golden[setting] = view
+            print("telemetry", setting, view["trace"])
+    finally:
+        metrics.set_enabled(was)
+    return golden
+
+
 def write_json(path: str, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1, sort_keys=True)
@@ -376,9 +424,12 @@ def make_digests(tmp: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["flags", "runtime"])
+    ap.add_argument("--only", choices=["flags", "runtime", "telemetry"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
+    if args.only in (None, "telemetry"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_json(TELEMETRY_DIGESTS, make_telemetry_digests(tmp))
     if args.only in (None, "runtime"):
         with tempfile.TemporaryDirectory() as tmp:
             write_json(RUNTIME_DIGESTS, make_runtime_digests(tmp))

@@ -21,6 +21,7 @@ import pytest
 from repic_tpu_torch import main as cli
 from repic_tpu_torch.pipeline import consensus as tcons
 from repic_tpu_torch.runtime import faults as tfaults
+from repic_tpu_torch.telemetry import metrics as tmetrics
 from torch_port_common import corrupt_box, write_box_dir
 from torch_runtime_common import assert_same_run, run_jax_dir
 
@@ -28,14 +29,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MINI = os.path.join(REPO, "tests", "fixtures", "mini10017")
 
 
-def _cli(capsys, *argv):
+def _cli(capsys, *argv, telemetry=False):
     """``python -m repic_tpu_torch consensus ...`` on the CPU, in this
-    process, the memo cleared as a new process has it; the stats."""
+    process, the memo cleared as a new process has it, telemetry off
+    (as :func:`run_jax_dir` runs the reference) unless asked; the
+    stats."""
     tcons._LAST_GOOD_CONFIG.clear()
     tcons._RECENT_REQUIREMENTS.clear()
+    was = tmetrics.enabled()
+    tmetrics.set_enabled(telemetry)
     try:
         assert cli.main(["consensus", *map(str, argv), "--device", "cpu"]) == 0
     finally:
+        tmetrics.set_enabled(was)
         tfaults.clear()
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 

@@ -122,7 +122,19 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.runtime.ladder',"
         " 'repic_tpu_torch.native',"
         " 'repic_tpu_torch.commands.get_cliques',"
-        " 'repic_tpu_torch.commands.run_ilp'} <= new\n"
+        " 'repic_tpu_torch.commands.run_ilp',"
+        " 'repic_tpu_torch.telemetry',"
+        " 'repic_tpu_torch.telemetry.metrics',"
+        " 'repic_tpu_torch.telemetry.events',"
+        " 'repic_tpu_torch.telemetry.probes',"
+        " 'repic_tpu_torch.telemetry.sinks',"
+        " 'repic_tpu_torch.telemetry.trace',"
+        " 'repic_tpu_torch.telemetry.devicetime',"
+        " 'repic_tpu_torch.telemetry.report',"
+        " 'repic_tpu_torch.telemetry.server',"
+        " 'repic_tpu_torch.commands._observability',"
+        " 'repic_tpu_torch.commands.report',"
+        " 'repic_tpu_torch.commands.trace'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu'))\n"
         "print(len(bad), bad[:5])\n"
@@ -152,10 +164,17 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(REPO, "repic_tpu_torch", "**", "*.py"),
                       recursive=True)
     # the modules of the lp/exact rungs, the tables, the striped path,
-    # the two-phase commands and the native cores are among them
+    # the two-phase commands, the native cores and the telemetry layer
+    # are among them
     for mod in ("ops/solver.py", "ops/components.py", "runtime/ladder.py",
                 "pipeline/giant.py", "native/__init__.py",
-                "commands/get_cliques.py", "commands/run_ilp.py"):
+                "commands/get_cliques.py", "commands/run_ilp.py",
+                "telemetry/__init__.py", "telemetry/metrics.py",
+                "telemetry/events.py", "telemetry/probes.py",
+                "telemetry/sinks.py", "telemetry/trace.py",
+                "telemetry/devicetime.py", "telemetry/report.py",
+                "telemetry/server.py", "commands/_observability.py",
+                "commands/report.py", "commands/trace.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (

@@ -465,3 +465,97 @@ def test_real_card_oom_is_classed_and_halves(cuda_device, tmp_path,
     tcons._RECENT_REQUIREMENTS.clear()
     tcons.run_consensus_dir(data, chunked, 64, device=cuda_device)
     assert _box_bytes(out) == _box_bytes(chunked)
+
+
+# -- the telemetry probes on the card --------------------------------------
+
+
+def _solve_batch(cuda_device, m=32):
+    """Kernel 3's largest contract input, ``m`` times: milliseconds of
+    device work."""
+    c, k, v = 20000, 3, 3072
+    arrays = [solve_inputs(c, k, v, seed=s) for s in range(m)]
+    return [t(np.stack(a), cuda_device) for a in zip(*arrays)] + [v]
+
+
+@pytest.mark.cuda
+def test_sync_device_waits_for_a_queued_kernel(cuda_device, tmp_path):
+    """``sync_device`` drains a queued kernel-3 launch; under
+    ``--device-time`` a span around a launch records the device tail."""
+    from repic_tpu_torch.telemetry import events as tevents
+    from repic_tpu_torch.telemetry import probes as tprobes
+
+    *args, v = _solve_batch(cuda_device)
+    tmk.fused_dual_solve(*args, v)  # the build and a warm launch
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_device)
+    tmk.fused_dual_solve(*args, v)
+    waited = tprobes.sync_device()
+    assert waited > 0 and stream.query()
+    log = tevents.EventLog(str(tmp_path / "_events.jsonl"))
+    prev = tevents.set_current_log(log)
+    try:
+        with tprobes.device_time(True), tevents.span("solve"):
+            tmk.fused_dual_solve(*args, v)
+    finally:
+        tevents.set_current_log(prev)
+        log.close()
+    (rec,) = tevents.read_events(str(tmp_path))
+    assert rec["device_tail_s"] > 0
+    assert rec["dur_s"] >= rec["host_s"] + rec["device_tail_s"] - 1e-6
+
+
+@pytest.mark.cuda
+def test_device_memory_reads_the_allocator(cuda_device):
+    from repic_tpu_torch.telemetry import probes as tprobes
+
+    x = torch.ones(1 << 20, device=cuda_device)
+    mem = tprobes.device_memory()
+    assert mem["bytes_in_use"] >= x.nbytes
+    assert mem["peak_bytes_in_use"] >= mem["bytes_in_use"]
+    assert mem["bytes_limit"] >= 16 << 30
+    count, nbytes = tprobes.live_buffers()
+    assert count >= 1 and nbytes >= x.nbytes
+    snap = tprobes.snapshot()
+    assert snap["device_memory"] == tprobes.device_memory()
+
+
+@pytest.mark.cuda
+def test_parse_trace_dir_on_a_real_profiler_trace(cuda_device, tmp_path):
+    """One kernel-2 launch under ``torch.profiler``: the trace file's
+    device ops are the profiler's own CUDA events, on a device lane,
+    and its device busy time is their union within 10%.  A session in
+    which the profiler itself recorded no CUDA activity (CUPTI
+    sometimes delivers none in a process that profiled before) is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import tensorboard_trace_handler
+
+    from repic_tpu_torch.telemetry.devicetime import parse_trace_dir
+
+    xy, conf, mask = clique_inputs(3, 1024)
+    args = [t(a, cuda_device)[None] for a in (xy, conf, mask)]
+    kw = dict(threshold=0.3, max_neighbors=8, clique_capacity=4096)
+    tmk.fused_clique_candidates(*args, BOX, **kw)
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        trace_dir = str(tmp_path / f"prof{attempt}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     on_trace_ready=tensorboard_trace_handler(trace_dir)
+                     ) as p:
+            tmk.fused_clique_candidates(*args, BOX, **kw)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in p.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    out = parse_trace_dir(trace_dir)
+    assert out["device_ops"] == len(spans) >= 1
+    assert out["device_busy_s"] == pytest.approx(busy / 1e6, rel=0.10)

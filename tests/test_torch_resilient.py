@@ -407,9 +407,10 @@ def test_bad_box_file_in_10017_is_quarantined(tmp_path):
 
 
 def test_10017_out_dir_equals_reference(tmp_path):
-    """A clean run of 10017 writes the reference's files (telemetry off,
-    ``_trace.jsonl`` aside): the BOX files, ``_journal.jsonl``,
-    ``_manifest.json`` and ``consensus_runtime.tsv``."""
+    """A clean run of 10017 writes the reference's files (telemetry
+    off): the BOX files, ``_journal.jsonl``, ``_manifest.json``,
+    ``_trace.jsonl`` and ``consensus_runtime.tsv``."""
     (out, _), _ = _both(tmp_path, "x", EXAMPLES, box=180)
     assert sorted(f for f in os.listdir(out) if not f.endswith(".box")) == [
-        "_journal.jsonl", "_manifest.json", "consensus_runtime.tsv"]
+        "_journal.jsonl", "_manifest.json", "_trace.jsonl",
+        "consensus_runtime.tsv"]

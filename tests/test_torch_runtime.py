@@ -38,7 +38,8 @@ from repic_tpu_torch.runtime import faults as tfaults
 from repic_tpu_torch.runtime import journal as tjournal
 from repic_tpu_torch.runtime import ladder as tladder
 from repic_tpu_torch.utils import box_io as tbox
-from repic_tpu_torch.utils.tracing import StageTimer, write_runtime_tsv
+from repic_tpu_torch.telemetry.sinks import write_runtime_tsv
+from repic_tpu_torch.utils.tracing import StageTimer
 
 PACKAGES = {
     "port": (tfaults, tjournal, tladder, tatomic, tbox),

@@ -6,38 +6,51 @@ tests use ``torch_port_common`` instead."""
 import os
 import re
 
-from repic_tpu_torch.utils.synthetic import JOURNAL_ERROR_KEYS, journal_view
+from repic_tpu_torch.utils.synthetic import (
+    JOURNAL_ERROR_KEYS,
+    journal_view,
+    trace_view,
+)
 
 #: the retry policy of the reference runtime tests (fast backoff)
 FAST_POLICY = dict(max_retries=1, backoff_base_s=0.001, backoff_cap_s=0.002)
 
 
 def run_port_dir(in_dir, out_dir, box_size, plan=(), policy=None,
-                 clear_memo=True, **kw):
+                 clear_memo=True, telemetry=False, **kw):
     """The port's ``run_consensus_dir`` on the CPU under ``plan`` (its
     own fault harness), the escalation memo cleared as a new process
-    has it (unless ``clear_memo`` is False).  Returns ``(stats, fired
-    log)``; an exception propagates."""
+    has it (unless ``clear_memo`` is False), its telemetry switched as
+    :func:`run_jax_dir` switches the reference's (off by default).
+    Returns ``(stats, fired log)``; an exception propagates."""
     from repic_tpu_torch.pipeline import consensus
     from repic_tpu_torch.runtime import faults
     from repic_tpu_torch.runtime.ladder import RetryPolicy
+    from repic_tpu_torch.telemetry import metrics
 
     if clear_memo:
         consensus._LAST_GOOD_CONFIG.clear()
         consensus._RECENT_REQUIREMENTS.clear()
-    with faults.fault_plan(*plan):
-        stats = consensus.run_consensus_dir(
-            in_dir, out_dir, box_size, device="cpu",
-            retry_policy=RetryPolicy(**policy) if policy else None, **kw)
-        return stats, sorted(faults.fired_log())
+    was = metrics.enabled()
+    metrics.set_enabled(telemetry)
+    try:
+        with faults.fault_plan(*plan):
+            stats = consensus.run_consensus_dir(
+                in_dir, out_dir, box_size, device="cpu",
+                retry_policy=RetryPolicy(**policy) if policy else None,
+                **kw)
+            return stats, sorted(faults.fired_log())
+    finally:
+        metrics.set_enabled(was)
 
 
 def run_jax_dir(in_dir, out_dir, box_size, plan=(), policy=None,
-                clear_memo=True, **kw):
+                clear_memo=True, telemetry=False, **kw):
     """``repic_tpu``'s ``run_consensus_dir(use_mesh=False)`` on the CPU
-    under ``plan`` (its fault harness), telemetry off, the memo cleared,
-    the megakernel forced into interpret mode for ``lp_device_fused``.
-    Returns ``(stats, fired log)``; an exception propagates."""
+    under ``plan`` (its fault harness), telemetry off unless asked, the
+    memo cleared, the megakernel forced into interpret mode for
+    ``lp_device_fused``.  Returns ``(stats, fired log)``; an exception
+    propagates."""
     from repic_tpu.pipeline import consensus
     from repic_tpu.runtime import faults
     from repic_tpu.runtime.ladder import RetryPolicy
@@ -51,7 +64,7 @@ def run_jax_dir(in_dir, out_dir, box_size, plan=(), policy=None,
     if kw.get("solver") == "lp_device_fused":
         os.environ[force] = "1"
     was = metrics.enabled()
-    metrics.set_enabled(False)
+    metrics.set_enabled(telemetry)
     try:
         with faults.fault_plan(*plan):
             stats = consensus.run_consensus_dir(
@@ -84,12 +97,16 @@ def stats_view(stats):
 
 def dir_bytes(out_dir):
     """Every file of an output directory by name: the bytes, the
-    manifest's ``created`` clock set to 0, and no ``_trace.jsonl`` (the
-    telemetry layer) or ``_journal.jsonl`` (compared by
-    :func:`journal_view`)."""
+    manifest's ``created`` clock set to 0, ``_trace.jsonl`` projected by
+    :func:`trace_view` (record kinds and segment names in order, ids and
+    clocks dropped, no compile segments after the first chunk's), and
+    no ``_journal.jsonl`` (compared by :func:`journal_view`)."""
     out = {}
     for f in sorted(os.listdir(out_dir)):
-        if f in ("_trace.jsonl", "_journal.jsonl"):
+        if f == "_journal.jsonl":
+            continue
+        if f == "_trace.jsonl":
+            out[f] = trace_view(out_dir, late_compile=False)
             continue
         with open(os.path.join(out_dir, f), "rb") as fh:
             data = fh.read()
