@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6 to 10, print the ``{"kernels": [...]}`` line
+5. after phases 6 to 11, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -107,7 +107,29 @@ Phases, each fatal on failure:
    ``--device-time --profile`` run of ``k5_mixed``'s 32 golden
    micrographs and of ``stress_50k``'s 2, held to the JAX digests,
    with each stage's ``host_s``, ``device_tail_s``, ``device_frac``
-   and the dispatch gap.
+   and the dispatch gap;
+11. the engine and the serve daemon (``tests/golden/
+   torch_port_serve_digests.json``): (a) ``ConsensusDaemon(device=
+   "cuda", warmup=True, warmup_buckets=[(3, 1024)])`` in this process
+   serves 10017 fused, ``--pallas`` and ``lp_device``, one job after
+   another: every artifact fetched over HTTP equals the JAX golden, the
+   job document, run journal and request journal equal the JAX
+   daemon's, and the kernels of each job's options launched (none for
+   ``lp_device``); (b) the synthetic set cut into bench_serve's burst
+   (16 small jobs of 1-8 micrographs and one of the other 184), posted
+   from :data:`SERVE_CLIENTS` client threads to a fresh daemon under
+   ``batch`` and ``single``, fused and ``--pallas``: one cold burst and
+   :data:`SERVE_ROUNDS` warm ones, each of phase 4's BOX files served
+   once and equal to it, with the burst wall, micrographs per second,
+   the small jobs' nearest-rank p95 accept-to-terminal latency,
+   coalesced jobs per chunk and the program-cache hits and misses; (c)
+   ``python -m repic_tpu_torch serve`` as a process on the card: a
+   ``server_crash`` at the first chunk boundary exits 24 and the
+   restart finishes both jobs with the golden bytes; two more restarts
+   there, the compile-cache sidecar's replay off and on, each give the
+   time to readiness, the replay's wall and the first job's latency; a
+   SIGTERM mid-job turns readiness red and exits 0 with the job
+   journaled; ``--tenants`` answers 401, 403 and 429.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -119,9 +141,11 @@ directories to ``build/chip_smoke/``, deleted at the end.
 
 import filecmp
 import json
+import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -148,6 +172,13 @@ PREFETCH_PAIRS = 5
 TELEMETRY_PAIRS = 10
 TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
                                  "torch_port_telemetry_digests.json")
+SERVE_DIGESTS = os.path.join(REPO, "tests", "golden",
+                             "torch_port_serve_digests.json")
+#: warm burst rounds after phase 11b's cold one (one, so that the
+#: earlier phases keep their depth inside the time limit), and its
+#: client threads
+SERVE_ROUNDS = 1
+SERVE_CLIENTS = 4
 #: the status server's paths phase 10 polls
 STATUS_PATHS = ("/healthz", "/healthz/ready", "/status", "/metrics")
 #: per phase-10 setting: the wrappers whose launches the run must show,
@@ -1271,6 +1302,403 @@ def phase_observability(synth, phase4_outs):
     return rep
 
 
+# -- phase 11: the engine and the serve daemon -------------------------
+
+
+def _p95(values):
+    """The nearest-rank 95th percentile (the largest of 16 values)."""
+    vals = sorted(values)
+    return vals[math.ceil(0.95 * len(vals)) - 1] if vals else None
+
+
+def _histogram(name):
+    """``(sum, count)`` of a registry histogram's unlabelled sample."""
+    from repic_tpu_torch import telemetry
+
+    sample = telemetry.histogram(name).samples().get((), {})
+    return sample.get("sum", 0.0), sample.get("count", 0)
+
+
+def _burst(port, job_dirs, options):
+    """Submit every job directory from :data:`SERVE_CLIENTS` client
+    threads (each submits, then polls to a terminal state); returns the
+    wall and each job's document."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch_serve_common import run_job
+
+    def one(in_dir):
+        return run_job(port, {"in_dir": in_dir, "box_size": BOX,
+                              "options": options}, timeout=600)
+
+    t = time.time()
+    with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as ex:
+        docs = list(ex.map(one, job_dirs))
+    return time.time() - t, docs
+
+
+def phase_serve(synth, phase4_outs):
+    """Phase 11: (a) a ``cuda`` daemon in this process serves 10017 in
+    the three golden settings, held to ``tests/golden/torch_port_10017``
+    and the JAX daemon's digests; (b) bench_serve's burst mix cut from
+    the synthetic set, batch and single, fused and ``--pallas``, a cold
+    burst and :data:`SERVE_ROUNDS` warm ones, every BOX file equal to
+    phase 4's; (c) ``serve`` as a process: a ``server_crash`` and the
+    restart, a SIGTERM drain mid-job, the tenants' 401/403/429."""
+    import urllib.error
+
+    from repic_tpu_torch import telemetry
+    from repic_tpu_torch.pipeline import consensus
+    from repic_tpu_torch.serve.daemon import ConsensusDaemon
+    from repic_tpu_torch.telemetry import metrics as tmetrics
+    from repic_tpu_torch.utils.synthetic import (
+        file_sha256, job_view, journal_view, serve_journal_view,
+        split_into_jobs,
+    )
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_serve_common import (
+        SERVE_SETTINGS, SERVE_WARMUP_BUCKETS, artifact_digests, req,
+        run_job, spawn, stop, submit, wait_ready, wait_terminal,
+    )
+
+    tmetrics.set_enabled(True)
+    rep = {}
+    hits = telemetry.counter("repic_program_cache_hits_total")
+    misses = telemetry.counter("repic_program_cache_misses_total")
+
+    def fresh():
+        clear_memo()
+        consensus._PROGRAM_SIGNATURES.clear()
+
+    # (a) 10017 in process, against the goldens and the JAX digests
+    with open(SERVE_DIGESTS) as f:
+        want = json.load(f)
+    fresh()
+    wd = os.path.join(WORK, "serve_10017")
+    t = time.time()
+    d = ConsensusDaemon(wd, port=0, device="cuda", warmup=True,
+                        warmup_buckets=SERVE_WARMUP_BUCKETS).start()
+    rep["10017"] = {}
+    try:
+        port = d.server.port
+        wait_ready(port, timeout=300)
+        rep["ready_s"] = time.time() - t
+        for setting, options in SERVE_SETTINGS.items():
+            reset_counts()
+            t = time.time()
+            doc = run_job(port, {"in_dir": EXAMPLES, "box_size": BOX,
+                                 "options": options}, timeout=300)
+            wall = time.time() - t
+            counts = read_counts()
+            if doc["state"] != "finished":
+                raise AssertionError(f"phase 11a {setting}: {doc}")
+            arts = artifact_digests(port, doc["id"])
+            gold_dir = os.path.join(GOLDEN, setting)
+            gold = {f: file_sha256(os.path.join(gold_dir, f))
+                    for f in os.listdir(gold_dir)}
+            if arts != gold or arts != want[setting]["artifacts"]:
+                raise AssertionError(f"phase 11a {setting}: artifacts "
+                                     "differ from the goldens")
+            if job_view(doc, REPO) != want[setting]["job"]:
+                raise AssertionError(f"phase 11a {setting}: job document "
+                                     f"{job_view(doc, REPO)}")
+            if journal_view(d.job_dir(doc["id"])) != \
+                    want[setting]["journal"]:
+                raise AssertionError(f"phase 11a {setting}: run journal")
+            need = LAUNCH_KEYS.get(setting, ())
+            for key in need:
+                if counts[key] <= 0:
+                    raise AssertionError(f"phase 11a {setting}: {key} "
+                                         "never launched")
+            if not need and any(counts[k] for k in (
+                    "topk_neighbors", "fused_clique_candidates",
+                    "fused_dual_solve")):
+                raise AssertionError(f"phase 11a {setting}: a kernel "
+                                     f"launched: {counts}")
+            rep["10017"][setting] = {"wall_s": wall, "launches": counts}
+            log(f"phase 11a: 10017 {setting} served on the card: 12 "
+                "artifacts (over HTTP) equal the JAX golden, job document "
+                f"and run journal equal the JAX daemon's; job wall "
+                f"{wall:.3f}s; launches {counts}")
+    finally:
+        d.drain()
+    if serve_journal_view(wd, REPO) != want["serve_journal"]:
+        raise AssertionError("phase 11a: the request journal differs from "
+                             "the JAX daemon's")
+    log(f"phase 11a: request journal equals the JAX daemon's; ready after "
+        f"{rep['ready_s']:.2f}s (warmup: kernel libraries, probe chunk, "
+        f"bucket {SERVE_WARMUP_BUCKETS})")
+
+    # (b) the burst at real size
+    job_dirs = split_into_jobs(synth, os.path.join(WORK, "serve_jobs"))
+    small = [j for j in job_dirs if not j.endswith("large")]
+    want_bytes = {}
+    for setting, ref in phase4_outs.items():
+        want_bytes[setting] = {f: open(os.path.join(ref, f), "rb").read()
+                               for f in os.listdir(ref)
+                               if f.endswith(".box")}
+    rep["burst"] = {}
+    for setting, options in (
+        ("lp_device_fused", SERVE_SETTINGS["lp_device_fused"]),
+        ("lp_device_pallas", SERVE_SETTINGS["lp_device_pallas"]),
+    ):
+        for scheduler in ("batch", "single"):
+            fresh()
+            wd = os.path.join(WORK, f"serve_{setting}_{scheduler}")
+            d = ConsensusDaemon(wd, port=0, device="cuda", warmup=True,
+                                scheduler=scheduler, queue_limit=32)
+            d.start()
+            rounds = []
+            try:
+                wait_ready(d.server.port, timeout=300)
+                for r in range(1 + SERVE_ROUNDS):
+                    reset_counts()
+                    h0, m0 = hits.value(), misses.value()
+                    c0 = _histogram("repic_serve_coalesced_jobs")
+                    wall, docs = _burst(d.server.port, job_dirs, options)
+                    counts = read_counts()
+                    c1 = _histogram("repic_serve_coalesced_jobs")
+                    lat = {dd["request"]["in_dir"]:
+                           dd["finished_ts"] - dd["accepted_ts"]
+                           for dd in docs}
+                    bad, served = [], []
+                    for dd in docs:
+                        if dd["state"] != "finished":
+                            raise AssertionError(f"phase 11b: {dd}")
+                        jd = d.job_dir(dd["id"])
+                        for f in os.listdir(jd):
+                            if f.endswith(".box"):
+                                served.append(f)
+                                with open(os.path.join(jd, f), "rb") as fh:
+                                    if fh.read() != want_bytes[setting][f]:
+                                        bad.append(f)
+                    if bad:
+                        raise AssertionError(
+                            f"phase 11b {setting} {scheduler}: {len(bad)} "
+                            f"BOX files differ from phase 4's: {bad[:5]}")
+                    # the jobs together wrote each of phase 4's files once
+                    if len(served) != len(set(served)) or \
+                            set(served) != set(want_bytes[setting]):
+                        raise AssertionError(
+                            f"phase 11b {setting} {scheduler}: served "
+                            f"{len(served)} BOX files ({len(set(served))} "
+                            f"names), phase 4 wrote "
+                            f"{len(want_bytes[setting])}")
+                    for key in LAUNCH_KEYS[setting]:
+                        if counts[key] <= 0:
+                            raise AssertionError(f"phase 11b {setting}: "
+                                                 f"{key} never launched")
+                    chunks = c1[1] - c0[1]
+                    rounds.append({
+                        "wall_s": wall,
+                        "micrographs_per_s": N_SYNTH / wall,
+                        "small_p95_s": _p95([lat[j] for j in small]),
+                        "large_latency_s": lat[job_dirs[len(job_dirs) // 2]],
+                        "coalesced_jobs_per_chunk": (
+                            (c1[0] - c0[0]) / chunks if chunks else None),
+                        "coalesced_chunks": chunks,
+                        "cache_hits": hits.value() - h0,
+                        "cache_misses": misses.value() - m0,
+                        "launches": counts,
+                    })
+            finally:
+                d.drain()
+            cold, warm = rounds[0], rounds[1:]
+            best = min(warm, key=lambda x: x["wall_s"])
+            rep["burst"][f"{setting}/{scheduler}"] = {
+                "cold": cold, "warm": warm, "best_warm": best}
+            log(f"phase 11b: {setting} {scheduler}: {len(job_dirs)} jobs, "
+                f"{N_SYNTH} micrographs, each of phase 4's BOX files served once "
+                f"and equal to it; "
+                f"cold {cold['wall_s']:.3f}s ({cold['micrographs_per_s']:.1f}"
+                f" mic/s, p95 small {cold['small_p95_s']:.3f}s, hits/misses "
+                f"{cold['cache_hits']:.0f}/{cold['cache_misses']:.0f}); "
+                f"best warm {best['wall_s']:.3f}s "
+                f"({best['micrographs_per_s']:.1f} mic/s, p95 small "
+                f"{best['small_p95_s']:.3f}s, hits/misses "
+                f"{best['cache_hits']:.0f}/{best['cache_misses']:.0f}); "
+                "coalesced jobs per chunk cold "
+                f"{cold['coalesced_jobs_per_chunk']}, warm "
+                f"{best['coalesced_jobs_per_chunk']}")
+
+    # (c) serve as a process (default device: cuda)
+    gold_dir = os.path.join(GOLDEN, "lp_device")
+    gold = {f: file_sha256(os.path.join(gold_dir, f))
+            for f in os.listdir(gold_dir)}
+    sub = {"in_dir": EXAMPLES, "box_size": BOX,
+           "options": {"use_mesh": False}}
+    wd = os.path.join(WORK, "serve_crash")
+    os.makedirs(wd)
+    env = {"REPIC_CONSENSUS_CHUNK": "4"}
+    # key "chunk:0", once (a spec's last field is its count)
+    proc, port = spawn("port", wd, dict(
+        env, REPIC_TPU_FAULTS="server_crash:chunk:0:1"),
+        ["--scheduler", "single"], warmup=True, timeout=300, device=None)
+    try:
+        ids = [submit(port, sub)[2]["id"] for _ in range(2)]
+        rc = proc.wait(timeout=300)
+    finally:
+        stop(proc)
+    if rc != 24:
+        raise AssertionError(f"phase 11c: server_crash exited {rc}")
+    proc, port = spawn("port", wd, env, ["--scheduler", "single"],
+                       warmup=True, timeout=300, device=None)
+    try:
+        docs = [wait_terminal(port, i, timeout=300) for i in ids]
+        arts = [artifact_digests(port, i) for i in ids]
+    finally:
+        rc2 = stop(proc)
+    if [dd["state"] for dd in docs] != ["finished"] * 2 or arts != [gold] * 2 \
+            or not docs[0]["resumed"] or rc2 != 0:
+        raise AssertionError(f"phase 11c: recovery {docs}, exit {rc2}")
+    rep["crash"] = {"exit": rc, "restart_exit": rc2,
+                    "resumed_micrographs":
+                        docs[0]["result"]["resumed_micrographs"]}
+    log(f"phase 11c: server_crash at the first chunk boundary exited {rc}; "
+        f"the restart finished both jobs with 10017's golden bytes (job 1 "
+        f"resumed past {rep['crash']['resumed_micrographs']} micrographs); "
+        f"exit {rc2}")
+    # the sidecar's replay at a restart, off and on, on the crash case's
+    # work directory (its programs.json holds the signatures 10017 ran):
+    # the time from spawn to readiness, the replay's own wall, and the
+    # first new job's accept-to-terminal latency and cache counters
+    rep["replay"] = {}
+    for mode, args in (("off", ["--compile-cache", "off"]), ("on", [])):
+        t = time.time()
+        proc, port = spawn("port", wd, env, ["--scheduler", "single", *args],
+                           warmup=True, timeout=300, device=None)
+        try:
+            wait_ready(port, timeout=300)
+            ready_s = time.time() - t
+            doc = run_job(port, sub, timeout=300)
+            arts = artifact_digests(port, doc["id"])
+            prom = req(port, "GET", "/metrics")[2]
+        finally:
+            rc3 = stop(proc)
+        if doc["state"] != "finished" or arts != gold or rc3 != 0:
+            raise AssertionError(f"phase 11c replay {mode}: {doc}, "
+                                 f"exit {rc3}")
+        counters = {}
+        for line in prom.splitlines():
+            for name in ("repic_program_cache_hits_total",
+                         "repic_program_cache_misses_total"):
+                if line.startswith(name + " "):
+                    counters[name] = float(line.split()[1])
+        warm_ev = {}
+        with open(os.path.join(wd, "_serve_journal.jsonl")) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec.get("event") == "warmup":
+                    warm_ev = rec
+        rep["replay"][mode] = {
+            "ready_s": ready_s,
+            "programs_warmed": warm_ev.get("programs_warmed"),
+            "replay_wall_s": warm_ev.get("wall_s"),
+            "first_job_s": doc["finished_ts"] - doc["accepted_ts"],
+            # a counter never incremented is not exposed
+            "cache_hits": counters.get("repic_program_cache_hits_total",
+                                       0.0),
+            "cache_misses": counters.get(
+                "repic_program_cache_misses_total", 0.0),
+        }
+        r = rep["replay"][mode]
+        replayed = ("no replay" if mode == "off" else
+                    f"{r['programs_warmed']} programs replayed in "
+                    f"{r['replay_wall_s']}s")
+        log(f"phase 11c: restart with the sidecar replay {mode}: ready "
+            f"after {ready_s:.3f}s (from spawn; {replayed}); first job "
+            f"{r['first_job_s']:.3f}s, golden bytes, cache hits/misses "
+            f"{r['cache_hits']}/{r['cache_misses']}")
+    # SIGTERM while the large burst job is in flight: readiness red,
+    # exit 0, the job journaled (re-queued past the grace)
+    wd = os.path.join(WORK, "serve_drain")
+    os.makedirs(wd)
+    proc, port = spawn("port", wd, {"REPIC_CONSENSUS_CHUNK": "8"},
+                       ["--scheduler", "single", "--drain-grace", "1"],
+                       warmup=True, timeout=300, device=None)
+    large = job_dirs[len(job_dirs) // 2]
+    try:
+        wait_ready(port, timeout=300)
+        jid = submit(port, {"in_dir": large, "box_size": BOX,
+                            "options": {"use_mesh": False}})[2]["id"]
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            doc = json.loads(req(port, "GET", f"/v1/jobs/{jid}")[2])
+            if doc.get("progress", {}).get("chunks_done", 0) >= 1 or \
+                    doc["state"] not in ("queued", "running"):
+                break
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        ready = []
+        while proc.poll() is None:
+            try:
+                ready.append(req(port, "GET", "/healthz/ready",
+                                 timeout=2)[0])
+            except (urllib.error.URLError, OSError):
+                break
+            time.sleep(0.01)
+    finally:
+        rc = stop(proc, timeout=120)
+    states = [e.get("state") for e in serve_journal_view(wd, REPO)
+              if e.get("job")]
+    events = [e.get("event") for e in serve_journal_view(wd, REPO)]
+    if rc != 0 or 503 not in ready or states[-1] not in ("queued",
+                                                         "finished") \
+            or "drain_begin" not in events \
+            or events[-1] != "drain_complete":
+        raise AssertionError(f"phase 11c drain: exit {rc}, readiness "
+                             f"{sorted(set(ready))}, states {states}, "
+                             f"events {events}")
+    rep["drain"] = {"exit": rc, "readiness": sorted(set(ready)),
+                    "states": states}
+    log(f"phase 11c: SIGTERM mid-job: readiness {sorted(set(ready))}, exit "
+        f"{rc}, the job journaled {states}, journal has drain_begin and "
+        "ends drain_complete")
+    # tenants: 401, 403, 429
+    wd = os.path.join(WORK, "serve_tenants")
+    os.makedirs(wd)
+    keyfile = os.path.join(wd, "tenants.json")
+    with open(keyfile, "w") as f:
+        json.dump({"tenants": [
+            {"name": "teamA", "keys": ["ka"], "max_open_jobs": 1},
+            {"name": "teamB", "keys": ["kb"]}]}, f)
+    proc, port = spawn("port", wd, None, ["--tenants", keyfile],
+                       warmup=True, timeout=300, device=None)
+    try:
+        wait_ready(port, timeout=300)
+        body = {"in_dir": large, "box_size": BOX,
+                "options": {"use_mesh": False}}
+        codes = {"none": req(port, "POST", "/v1/jobs", body)[0],
+                 "unknown": req(port, "POST", "/v1/jobs", body,
+                                key="nope")[0]}
+        code, _, doc = submit(port, body, key="ka")
+        codes["teamA"] = code
+        code, headers, refused = submit(port, body, key="ka")
+        codes["teamA_again"] = (code, refused.get("error"),
+                                headers.get("Retry-After"))
+        codes["teamB_reads_A"] = req(port, "GET", f"/v1/jobs/{doc['id']}",
+                                     key="kb")[0]
+        codes["teamA_done"] = wait_terminal(port, doc["id"], timeout=300,
+                                            key="ka")["state"]
+    finally:
+        rc = stop(proc)
+    if (codes["none"], codes["unknown"], codes["teamA"],
+            codes["teamA_again"][:2], codes["teamB_reads_A"],
+            codes["teamA_done"], rc) != (
+            401, 403, 202, (429, "tenant_open_jobs"), 403, "finished", 0):
+        raise AssertionError(f"phase 11c tenants: {codes}, exit {rc}")
+    rep["tenants"] = codes
+    log(f"phase 11c: --tenants: no key {codes['none']}, unknown key "
+        f"{codes['unknown']}, teamA {codes['teamA']}, teamA again "
+        f"{codes['teamA_again']}, teamB reading teamA's job "
+        f"{codes['teamB_reads_A']}; exit {rc}")
+    return rep
+
+
 # -- A/B passes: one tree's directory runs, for a before/after ----------
 
 #: warm synthetic_256 pairs (prefetch on, off) per --passes process
@@ -1368,6 +1796,7 @@ def main() -> int:
     from repic_tpu_torch.utils import box_io
     from repic_tpu_torch.utils.synthetic import write_synthetic_dir
 
+    t_main = time.time()
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1679,20 +2108,33 @@ def main() -> int:
                 raise AssertionError(f"{f}: bad row {line!r}")
     log("phase 4: fused and staged+pallas BOX outputs byte-identical")
 
+    phase_s = {"1-4": time.time() - t_main}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        phase_s[name] = time.time() - t
+        log(f"  (phase {name}: {phase_s[name]:.1f}s; "
+            f"{time.time() - t_main:.1f}s since the start)")
+        return out
+
     # -- phases 6 and 7: the dense configurations --------------------
     with open(DIGESTS) as f:
         golden = json.load(f)
-    stress = phase_stress(golden)
-    k5 = phase_k5(golden)
+    stress = timed("6", phase_stress, golden)
+    k5 = timed("7", phase_k5, golden)
 
     # -- phase 8: the flags, the rungs, the two-phase CLI, stripes ----
-    phase8 = phase_flags(synth)
+    phase8 = timed("8", phase_flags, synth)
 
     # -- phase 9: the fault-tolerant runtime --------------------------
-    phase9 = phase_runtime(synth, outs)
+    phase9 = timed("9", phase_runtime, synth, outs)
 
     # -- phase 10: the observability layer ----------------------------
-    phase10 = phase_observability(synth, outs)
+    phase10 = timed("10", phase_observability, synth, outs)
+
+    # -- phase 11: the engine and the serve daemon --------------------
+    phase11 = timed("11", phase_serve, synth, outs)
 
     # -- phase 5: report -------------------------------------------
     replaces = {
@@ -1722,11 +2164,16 @@ def main() -> int:
             entry["name"], {})
         # launches in phase 10a's profiled, device-timed 10017 run
         entry["telemetry_launches"] = phase10["launches"][entry["name"]]
+        # launches in phase 11a's served 10017 jobs, per setting
+        entry["serve_launches"] = {
+            setting: r["launches"][entry["name"]]
+            for setting, r in phase11["10017"].items()}
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
-              "phase9": phase9, "phase10": phase10}
+              "phase9": phase9, "phase10": phase10, "phase11": phase11,
+              "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 Each command module exposes ``add_arguments(parser)`` and
 ``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
 directory consensus), the two-phase pair ``get_cliques`` +
-``run_ilp``, and ``report`` / ``trace`` over a run's directory.
+``run_ilp``, ``report`` / ``trace`` over a run's directory, and the
+``serve`` daemon.
 """
 
 import argparse
@@ -18,6 +19,7 @@ COMMANDS = {
     "run_ilp": "repic_tpu_torch.commands.run_ilp",
     "report": "repic_tpu_torch.commands.report",
     "trace": "repic_tpu_torch.commands.trace",
+    "serve": "repic_tpu_torch.commands.serve",
 }
 
 

@@ -156,6 +156,45 @@ def program_signature(threshold, d, cap, grid, cell_cap, solver,
         str(solver), bool(use_pallas), int(pcap), tuple(shape),
     )
 
+
+def note_program_signature(sig: tuple) -> bool:
+    """Mark ``sig`` as seen without counting a hit or a miss: the
+    warmup replay's entry point, so the first real request on a
+    replayed signature counts as the hit it is.  Returns True when the
+    signature was already known."""
+    if sig in _PROGRAM_SIGNATURES:
+        return True
+    _PROGRAM_SIGNATURES.add(sig)
+    return False
+
+
+def _persist_program_signature(sig: tuple, box_rank: int) -> None:
+    """Record an executed signature in the compile-cache sidecar
+    (no-op unless :func:`repic_tpu_torch.runtime.compilecache.enable`
+    ran), so a restarted daemon can replay it; ``box_rank`` is the box
+    argument's rank (scalar or per-picker), an input the replay must
+    reproduce."""
+    from repic_tpu_torch.runtime import compilecache
+
+    if compilecache.enabled_dir() is None:
+        return
+    (threshold, d, cap, mesh_flag, grid, cell_cap, solver,
+     use_pallas, pcap, shape) = sig
+    compilecache.record_program({
+        "threshold": threshold,
+        "max_neighbors": d,
+        "clique_capacity": cap,
+        "mesh": mesh_flag,
+        "spatial_grid": grid,
+        "cell_capacity": cell_cap,
+        "solver": solver,
+        "use_pallas": use_pallas,
+        "partial_capacity": pcap,
+        "shape": list(shape),
+        "box_rank": int(box_rank),
+    })
+
+
 SOLVERS = ("greedy", "lp", "lp_device", "lp_device_fused", "exact")
 #: the solvers that run inside the device program ("exact" runs the
 #: greedy program and re-solves on the host)
@@ -636,6 +675,7 @@ def run_consensus_batch(
         else:
             _PROGRAM_SIGNATURES.add(sig)
             _PROGRAM_MISSES.inc()
+            _persist_program_signature(sig, box_rank=sizes.ndim)
         # The span closes after the launches and before the blocking
         # fetch: under --device-time its host_s is the host's issue
         # work and its device_tail_s the chunk's device execution (the

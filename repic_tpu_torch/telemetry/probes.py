@@ -96,6 +96,8 @@ _compile_seconds = 0.0
 _transfer_bytes = 0
 _transfer_fetches = 0
 _device_dispatches = 0
+_persistent_hits = 0
+_persistent_hit_seconds = 0.0
 
 
 def note_build(seconds: float) -> None:
@@ -109,7 +111,11 @@ def note_build(seconds: float) -> None:
 def note_cached_load(seconds: float) -> None:
     """Count one load of a library already built on disk: a compile
     that was a persistent-cache hit."""
+    global _persistent_hits, _persistent_hit_seconds
     note_build(seconds)
+    with _lock:
+        _persistent_hits += 1
+        _persistent_hit_seconds += float(seconds)
     # lazy: the package __init__ imports this module
     from repic_tpu_torch.telemetry import metrics as _m
 
@@ -139,6 +145,21 @@ def counters() -> tuple[int, int, int]:
     """(compiles, transfer_bytes, transfer_fetches): the cumulative
     counters spans diff at their boundaries."""
     return _compiles, _transfer_bytes, _transfer_fetches
+
+
+def persistent_cache_hits() -> int:
+    """Loads of a library already built on disk, so far."""
+    return _persistent_hits
+
+
+def persistent_cache_hit_seconds() -> float:
+    """Cumulative seconds of those loads."""
+    return _persistent_hit_seconds
+
+
+def fresh_compiles() -> int:
+    """Builds that were not loads of a library already on disk."""
+    return max(_compiles - _persistent_hits, 0)
 
 
 def compile_seconds() -> float:

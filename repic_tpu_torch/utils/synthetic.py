@@ -405,3 +405,97 @@ def telemetry_view(out_dir: str) -> dict:
     journal["events"].sort()
     return {"metrics": metrics, "spans": dict(sorted(span_counts.items())),
             "trace": trace_view(out_dir), "journal": journal}
+
+
+#: serve-record keys that are clocks, process ids, timings, or (in the
+#: port) the counts of a library build or load, left out of
+#: :func:`job_view` and :func:`serve_journal_view`
+SERVE_VOLATILE = frozenset((
+    "ts", "pid", "port", "accepted_ts", "started_ts", "finished_ts",
+    "wall_s", "compile_s", "persistent_cache_hits", "persistent_hit_s",
+    "fresh_compiles",
+))
+
+
+def _serve_record(rec: dict, ids: dict, root: str | None) -> dict:
+    """One serve record (job document or journal line) projected: the
+    volatile keys dropped, job ids replaced by their order of first
+    appearance, trace ids and deadlines reduced to their presence,
+    paths relative to ``root``, errors to the journal's error keys."""
+    out = {}
+    for key, val in rec.items():
+        if key in SERVE_VOLATILE:
+            continue
+        if key in ("id", "job"):
+            val = ids.setdefault(val, f"job{len(ids)}")
+        elif key == "recovered":
+            val = [ids.setdefault(j, f"job{len(ids)}") for j in val]
+        elif key in ("trace", "trace_id", "deadline_ts"):
+            val = val is not None
+        elif key == "error" and isinstance(val, dict):
+            val = {k: val.get(k) for k in JOURNAL_ERROR_KEYS}
+        elif (key == "request" and isinstance(val, dict) and root
+              and "in_dir" in val):
+            val = dict(val, in_dir=os.path.relpath(val["in_dir"], root))
+        elif key == "result" and isinstance(val, dict):
+            val = {k: v for k, v in val.items() if k != "out_dir"}
+        elif key == "compile_cache":
+            val = os.path.basename(val)
+        elif key == "buckets":
+            val = [_serve_record(b, ids, root) for b in val]
+        out[key] = val
+    return out
+
+
+def job_view(doc: dict, root: str | None = None) -> dict:
+    """A ``GET /v1/jobs/<id>`` document as two daemons compare it (see
+    :func:`_serve_record`; ``root`` makes ``request.in_dir``
+    relative)."""
+    return _serve_record(doc, {}, root)
+
+
+def serve_journal_view(work_dir: str, root: str | None = None) -> list:
+    """A daemon's ``_serve_journal.jsonl`` as two daemons compare it:
+    every record in order, projected by :func:`_serve_record` with job
+    ids numbered by first appearance."""
+    from repic_tpu_torch.runtime.journal import _read_entries
+
+    ids: dict = {}
+    return [_serve_record(e, ids, root) for e in _read_entries(
+        os.path.join(work_dir, "_serve_journal.jsonl"))]
+
+
+#: the serve burst's small jobs, in micrographs (bench_serve.py's mix)
+SERVE_SMALL_SIZES = (1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3, 4, 5, 6, 7, 8)
+
+
+def split_into_jobs(in_dir: str, out_root: str,
+                    sizes=SERVE_SMALL_SIZES) -> list[str]:
+    """Split a picker directory into serve job directories of
+    ``sizes`` micrographs each, in name order, plus one job of the
+    rest, which lands mid-burst (the head-of-line case): each job's
+    ``<picker>/<name>.box`` is a symbolic link to the input file.
+    Returns the job directories in submission order."""
+    pickers = sorted(d for d in os.listdir(in_dir)
+                     if os.path.isdir(os.path.join(in_dir, d)))
+    names = sorted(f[:-4] for f in os.listdir(
+        os.path.join(in_dir, pickers[0])) if f.endswith(".box"))
+    bounds = np.cumsum((0,) + tuple(sizes))
+    if bounds[-1] >= len(names):
+        raise ValueError(f"{len(names)} micrographs cannot fill jobs of "
+                         f"{list(sizes)} and a large one")
+    parts = [names[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    jobs = [(f"small{j:02d}", part) for j, part in enumerate(parts)]
+    mid = len(jobs) // 2
+    jobs.insert(mid, ("large", names[bounds[-1]:]))
+    out = []
+    for job, part in jobs:
+        root = os.path.join(out_root, job)
+        for p in pickers:
+            os.makedirs(os.path.join(root, p), exist_ok=True)
+            for name in part:
+                os.symlink(os.path.abspath(os.path.join(in_dir, p,
+                                                        name + ".box")),
+                           os.path.join(root, p, name + ".box"))
+        out.append(root)
+    return out

@@ -80,8 +80,18 @@ prefetched-chunk count (it follows the worker's timing).  Each run
 starts from an empty program-signature set and escalation memo, as a
 new process does.
 
-``--only flags`` / ``--only runtime`` / ``--only telemetry`` rewrite
-only that file.
+And it writes ``tests/golden/torch_port_serve_digests.json``: the JAX
+package's serve daemon on the CPU (warmup on, warmup bucket 3:1024)
+serving examples/10017 once per setting of
+``torch_serve_common.SERVE_SETTINGS`` (fused, ``--pallas``,
+``lp_device``), one job after another -- per job the sha256 of every
+artifact fetched over HTTP, the job document projected by
+:func:`repic_tpu_torch.utils.synthetic.job_view` and the run journal by
+:func:`~repic_tpu_torch.utils.synthetic.journal_view`, and the request
+journal by :func:`~repic_tpu_torch.utils.synthetic.serve_journal_view`.
+
+``--only flags`` / ``--only runtime`` / ``--only telemetry`` /
+``--only serve`` rewrite only that file.
 """
 
 import argparse
@@ -132,6 +142,9 @@ SIDECAR_CHUNK = 4
 TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
                                  "torch_port_telemetry_digests.json")
 #: settings (names of ``SETTINGS``) of the telemetry digests
+SERVE_DIGESTS = os.path.join(REPO, "tests", "golden",
+                             "torch_port_serve_digests.json")
+SERVE_SETTINGS_ORDER = ("lp_device_fused", "lp_device_pallas", "lp_device")
 TELEMETRY_SETTINGS = ("lp_device", "lp_device_pallas", "lp_device_fused")
 
 
@@ -345,6 +358,23 @@ def make_telemetry_digests(tmp: str) -> dict:
     return golden
 
 
+def make_serve_digests(tmp: str) -> dict:
+    """The JAX daemon's 10017 jobs that the port's CPU daemon and
+    ``chip_smoke.py`` phase 11a are held to."""
+    from torch_serve_common import FORCE_ENV, fresh, serve_10017
+
+    fresh("jax")
+    os.environ[FORCE_ENV] = "1"
+    try:
+        golden = serve_10017("jax", os.path.join(tmp, "serve"))
+    finally:
+        os.environ.pop(FORCE_ENV, None)
+    for setting in SERVE_SETTINGS_ORDER:
+        print("serve", setting, len(golden[setting]["artifacts"]),
+              "artifacts")
+    return golden
+
+
 def write_json(path: str, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1, sort_keys=True)
@@ -424,9 +454,14 @@ def make_digests(tmp: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["flags", "runtime", "telemetry"])
+    ap.add_argument("--only",
+                    choices=["flags", "runtime", "telemetry", "serve"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
+    os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    if args.only in (None, "serve"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_json(SERVE_DIGESTS, make_serve_digests(tmp))
     if args.only in (None, "telemetry"):
         with tempfile.TemporaryDirectory() as tmp:
             write_json(TELEMETRY_DIGESTS, make_telemetry_digests(tmp))

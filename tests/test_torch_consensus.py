@@ -134,7 +134,16 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.telemetry.server',"
         " 'repic_tpu_torch.commands._observability',"
         " 'repic_tpu_torch.commands.report',"
-        " 'repic_tpu_torch.commands.trace'} <= new\n"
+        " 'repic_tpu_torch.commands.trace',"
+        " 'repic_tpu_torch.runtime.compilecache',"
+        " 'repic_tpu_torch.pipeline.engine',"
+        " 'repic_tpu_torch.serve',"
+        " 'repic_tpu_torch.serve.tenancy',"
+        " 'repic_tpu_torch.serve.autoscale',"
+        " 'repic_tpu_torch.serve.jobs',"
+        " 'repic_tpu_torch.serve.batcher',"
+        " 'repic_tpu_torch.serve.daemon',"
+        " 'repic_tpu_torch.commands.serve'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu'))\n"
         "print(len(bad), bad[:5])\n"
@@ -165,7 +174,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                       recursive=True)
     # the modules of the lp/exact rungs, the tables, the striped path,
     # the two-phase commands, the native cores and the telemetry layer
-    # are among them
+    # are among them, and so are the engine and the serve stack
     for mod in ("ops/solver.py", "ops/components.py", "runtime/ladder.py",
                 "pipeline/giant.py", "native/__init__.py",
                 "commands/get_cliques.py", "commands/run_ilp.py",
@@ -174,12 +183,16 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "telemetry/sinks.py", "telemetry/trace.py",
                 "telemetry/devicetime.py", "telemetry/report.py",
                 "telemetry/server.py", "commands/_observability.py",
-                "commands/report.py", "commands/trace.py"):
+                "commands/report.py", "commands/trace.py",
+                "runtime/compilecache.py", "pipeline/engine.py",
+                "serve/__init__.py", "serve/tenancy.py",
+                "serve/autoscale.py", "serve/jobs.py", "serve/batcher.py",
+                "serve/daemon.py", "commands/serve.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_cuda.py",
-        "tests/torch_port_common.py")]
+        "tests/torch_port_common.py", "tests/torch_serve_common.py")]
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):

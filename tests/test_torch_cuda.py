@@ -559,3 +559,74 @@ def test_parse_trace_dir_on_a_real_profiler_trace(cuda_device, tmp_path):
     out = parse_trace_dir(trace_dir)
     assert out["device_ops"] == len(spans) >= 1
     assert out["device_busy_s"] == pytest.approx(busy / 1e6, rel=0.10)
+
+
+# -- the serve daemon on the card ------------------------------------
+
+
+@pytest.mark.cuda
+def test_served_fused_job_gives_the_cpu_daemons_bytes(cuda_device,
+                                                      tmp_path):
+    """A daemon on ``cuda`` serves one fused ``mini10017`` job: its
+    artifacts equal the CPU daemon's byte for byte, and kernels 2 and 3
+    launched on the card for it."""
+    from torch_serve_common import (
+        FIXTURE, artifact_digests, fresh, run_job, running,
+    )
+
+    body = {"in_dir": FIXTURE, "box_size": 180,
+            "options": {"use_mesh": False, "solver": "lp_device_fused"}}
+    digests = {}
+    for device in ("cpu", "cuda"):
+        fresh("port")
+        before = dict(tmk.LAUNCHES)
+        with running("port", str(tmp_path / device), warmup=False,
+                     device=device) as d:
+            doc = run_job(d.server.port, body, timeout=300)
+            assert doc["state"] == "finished", doc
+            digests[device] = artifact_digests(d.server.port, doc["id"])
+        launched = {k: tmk.LAUNCHES[k] - before[k] for k in before}
+        if device == "cuda":
+            assert all(v >= 1 for v in launched.values()), launched
+        else:
+            assert not any(launched.values()), launched
+    assert len(digests["cuda"]) == 3
+    assert digests["cuda"] == digests["cpu"]
+
+
+@pytest.mark.cuda
+def test_warmup_on_cuda_loads_the_kernel_libraries(cuda_device):
+    from repic_tpu_torch import _build
+    from repic_tpu_torch.pipeline import engine
+
+    info = engine.warmup(3, 64, device="cuda")
+    assert set(_build.KERNELS) <= set(_build._LIBS)
+    assert info["num_pickers"] == 3 and info["capacity"] == 64
+
+
+@pytest.mark.cuda
+def test_cuda_daemon_without_visible_card_raises_before_binding(
+        cuda_device, tmp_path):
+    """With ``CUDA_VISIBLE_DEVICES=""`` a ``cuda`` daemon raises at
+    construction: no port bound, no ``_serve.json``."""
+    import subprocess
+    import sys
+
+    wd = str(tmp_path / "wd")
+    code = (
+        "import sys\n"
+        "from repic_tpu_torch.serve.daemon import ConsensusDaemon\n"
+        "try:\n"
+        f"    ConsensusDaemon({wd!r}, port=0, device='cuda')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n"
+        "    sys.exit(3)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO),
+    )
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "CUDA" in proc.stdout
+    assert not os.path.exists(os.path.join(wd, "_serve.json"))
