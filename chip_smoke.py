@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6 to 11, print the ``{"kernels": [...]}`` line
+5. after phases 6 to 12, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -129,7 +129,30 @@ Phases, each fatal on failure:
    there, the compile-cache sidecar's replay off and on, each give the
    time to readiness, the replay's wall and the first job's latency; a
    SIGTERM mid-job turns readiness red and exits 0 with the job
-   journaled; ``--tenants`` answers 401, 403 and 429.
+   journaled; ``--tenants`` answers 401, 403 and 429;
+12. the CNN picker and the host utilities (``tests/golden/
+   torch_port_picker/``, ``tests/golden/torch_port_utilities_digests.json``):
+   (a) ``python -m repic_tpu_torch pick`` (in this process) with the
+   committed JAX-written deep checkpoint on two seeded 4096 x 4096
+   micrographs (``utils/synthetic.py: synthetic_micrograph``, particle
+   size 180), patch / float32, fcn / float32 and patch / ``--bf16``,
+   each twice with byte-identical BOX files; the score maps of the same
+   inputs (``infer.score_micrograph_*``) within 1e-4 of the JAX float32
+   maps (``--bf16``: 3e-2); JAX's maps through the port's peak picking
+   on the card give JAX's BOX bytes, and the port's picks sit at JAX's
+   grid cells up to near-ties (at most 1%); prints seconds per
+   micrograph, windows per second, peak device memory, the device's
+   busy share of a profiled pick and the conv stack's FLOP bound, and
+   whether the card's z-scored micrograph and patch resize are the
+   CPU's bits; (b) ``greedy_suppress_device`` on the card at P = 1,024
+   and 4,096 against the host loop: keep masks equal, both times;
+   (c) ``convert`` over the 10017 BOX files through 9 chains (every
+   output's sha256 equal to the JAX digests), ``score`` cryolo vs
+   topaz rasterized on the card (within rel 1e-6 of
+   ``tests/golden/ref_scores_cryolo_vs_topaz_10017.tsv``), ``score
+   --match distance`` (``results.txt`` equal to the executed
+   reference's) and ``build_subsets`` (split membership equal to the
+   JAX digest).
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -1699,6 +1722,420 @@ def phase_serve(synth, phase4_outs):
     return rep
 
 
+# -- phase 12: the CNN picker and the host utilities --------------------
+
+#: the picker's goldens from the JAX package (tests/golden/
+#: make_torch_port_golden.py --only picker): checkpoint, score maps, picks
+PICKER = os.path.join(REPO, "tests", "golden", "torch_port_picker")
+UTILITIES_DIGESTS = os.path.join(REPO, "tests", "golden",
+                                 "torch_port_utilities_digests.json")
+PICKER_SEEDS = (0, 1)
+PICKER_PARTICLE = 180
+#: (label, pick flags, mode, compute dtype); the score maps of every
+#: setting are held to the JAX float32 maps of their mode
+PICK_SETTINGS = (("patch", [], "patch", "float32"),
+                 ("fcn", ["--mode", "fcn"], "fcn", "float32"),
+                 ("patch_bf16", ["--bf16"], "patch", "bfloat16"))
+MAP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+#: H100 SXM dense peaks (data sheet, 700 W; a multiply-add is two
+#: operations): float32 outside the tensor cores, bfloat16 on them
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+NMS_SIZES = (1024, 4096)
+#: the golden generator's convert chains: BOX to each output format,
+#: then each STAR / TSV output to each
+CONVERT_CHAINS = tuple(
+    [("box", o) for o in ("star", "tsv", "box")]
+    + [(i, o) for i in ("star", "tsv") for o in ("star", "tsv", "box")])
+
+
+def picker_flops(mode: str, h: int, w: int, patch: int, step: int = 4):
+    """Floating-point operations (a multiply-add is two) of the deep
+    architecture's convolutions and FC head for one binned ``(h, w)``
+    micrograph: per window in ``patch`` mode, over the shifted resized
+    copies in ``fcn`` mode.  Returns ``(flops, windows)``."""
+    from repic_tpu_torch.models.cnn import ARCHS
+
+    spec, width = ARCHS["deep"]["conv_spec"], ARCHS["deep"]["fc_width"]
+
+    def backbone(hh, ww):
+        macs, cin = 0, 1
+        for k, f in spec:
+            hh, ww = hh - k + 1, ww - k + 1
+            macs += hh * ww * k * k * cin * f
+            hh, ww, cin = hh // 2, ww // 2, f
+        return macs, hh, ww, cin
+
+    out_h, out_w = (h - patch) // step + 1, (w - patch) // step + 1
+    if mode == "patch":
+        macs, fh, fw, c = backbone(64, 64)
+        per = macs + fh * fw * c * width + width * 2
+        return 2.0 * per * out_h * out_w, out_h * out_w
+    scale = 64 / patch
+    sh, sw = int(round(h * scale)), int(round(w * scale))
+    sstep = max(1, int(round(step * scale)))
+    n = 16 // sstep
+    macs, fh, fw, c = backbone(sh - (n - 1) * sstep, sw - (n - 1) * sstep)
+    head = (fh - 1) * (fw - 1) * (4 * c * width + width * 2)
+    windows = ((sh - 64) // sstep + 1) * ((sw - 64) // sstep + 1)
+    return 2.0 * n * n * (macs + head), windows
+
+
+def _grid_cells(rows, mode, patch=PICKER_PARTICLE // 3, step=4):
+    """BOX rows (corner x, y) -> score-map grid cells (x, y)."""
+    import numpy as np
+
+    if mode == "fcn":
+        scale = 64 / patch
+        step = max(1, int(round(step * scale))) / scale
+    xy = np.asarray(rows, float).reshape(-1, 2) + PICKER_PARTICLE / 2
+    return np.rint((xy / 3 - patch / 2) / step).astype(int)
+
+
+def _box_rows(path):
+    with open(path) as f:
+        return [tuple(float(v) for v in line.split()[:2]) for line in f]
+
+
+def check_picks_against_jax(got_path, want_path, smap, mode):
+    """The port's picks and JAX's on the same grid cells both ways: a
+    cell in one set and not the other is excused only where JAX's map
+    nearly ties (|d| < 1e-5) inside the window there, for at most 1% of
+    picks, and the counts differ by at most 1 + 1%.  Returns
+    ``(picks, excused)``."""
+    import numpy as np
+
+    patch = PICKER_PARTICLE // 3
+    window = max(int(0.6 * patch / 4), 1)
+    want = _grid_cells(_box_rows(want_path), mode)
+    got = _grid_cells(_box_rows(got_path), mode)
+    excused = 0
+    for cells, others, side in ((got, want, "port"), (want, got, "JAX")):
+        others = {tuple(c) for c in others}
+        for x, y in cells:
+            if (x, y) in others:
+                continue
+            win = smap[max(y - window, 0):y + window + 1,
+                       max(x - window, 0):x + window + 1].ravel()
+            d = np.abs(win[:, None] - win[None, :])
+            if not (d[d > 0] < 1e-5).any():
+                raise AssertionError(
+                    f"{got_path}: {side} pick at cell ({x}, {y}) is missing "
+                    "from the other side and has no near-tie")
+            excused += 1
+    if excused > len(want) // 100:
+        raise AssertionError(f"{got_path}: {excused} picks differ from "
+                             f"JAX's {len(want)}")
+    if abs(len(got) - len(want)) > 1 + len(want) // 100:
+        raise AssertionError(f"{got_path}: {len(got)} picks against JAX's "
+                             f"{len(want)}")
+    return len(got), excused
+
+
+def row_chunk_readings(infer, sd, img, patch):
+    """``score_micrograph_patches`` at the module's row chunk and at 32
+    rows per batch: the warm scoring time by CUDA events (one call after
+    one warm call), the peak device memory, and the map's largest
+    difference from the module default's."""
+    import torch
+
+    default, res, base = infer.ROW_CHUNK, {}, None
+    try:
+        for rows in (default, 32):
+            infer.ROW_CHUNK = rows
+            infer.score_micrograph_patches(sd, img, patch_size=patch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            t0.record()
+            got = infer.score_micrograph_patches(sd, img, patch_size=patch)
+            t1.record()
+            torch.cuda.synchronize()
+            base = got if base is None else base
+            res[rows] = {"ms": t0.elapsed_time(t1),
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "diff": float((got - base).abs().max())}
+    finally:
+        infer.ROW_CHUNK = default
+    return res
+
+
+def phase_picker():
+    """Phase 12a/b: ``pick`` at full width on two 4096 x 4096 micrographs
+    in three settings, the score maps against the JAX goldens, JAX's
+    maps through the port's peak picking, and the device NMS against
+    the host loop."""
+    import numpy as np
+    import torch
+
+    from repic_tpu_torch.models import infer
+    from repic_tpu_torch.models import preprocess as pp
+    from repic_tpu_torch.models.checkpoint import (
+        load_checkpoint, params_from_jax,
+    )
+    from repic_tpu_torch.models.cnn import fc_params_as_conv
+    from repic_tpu_torch.ops.nms import greedy_suppress_device
+    from repic_tpu_torch.utils import mrc
+    from repic_tpu_torch.utils.box_io import render_box
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    dev = torch.device("cuda")
+    ckpt = os.path.join(PICKER, "deep.ckpt")
+    golden = dict(np.load(os.path.join(PICKER, "maps.npz")))
+    params, meta = load_checkpoint(ckpt)
+    sd = {"patch": params_from_jax(params),
+          "fcn": params_from_jax(fc_params_as_conv(params))}
+    sd = {k: {n: t.to(dev) for n, t in v.items()} for k, v in sd.items()}
+    mrc_dir = os.path.join(WORK, "picker_mrc")
+    os.makedirs(mrc_dir)
+    raws = {}
+    for seed in PICKER_SEEDS:
+        raws[seed], _ = synthetic_micrograph(seed)
+        mrc.write_mrc(os.path.join(mrc_dir, f"mic_{seed}.mrc"), raws[seed])
+    patch = PICKER_PARTICLE // 3
+    res = {"card": smi(), "settings": {}}
+
+    # the card's preprocessing and resize against the CPU's bits
+    raw0 = torch.from_numpy(raws[0])
+    img_cpu = pp.preprocess_micrograph(raw0)
+    imgs = {seed: pp.preprocess_micrograph(torch.from_numpy(r).to(dev))
+            for seed, r in raws.items()}
+    res["preprocess_card_equals_cpu"] = bool(
+        torch.equal(imgs[0].cpu(), img_cpu))
+    windows = img_cpu.unfold(0, patch, 4).unfold(1, patch, 4)[:4].reshape(
+        -1, patch, patch)
+    b = pp.bytescale(windows)
+    res["resize_card_equals_cpu"] = bool(torch.equal(
+        pp.resize_patches(b.to(dev), 64).cpu(), pp.resize_patches(b, 64)))
+    log(f"phase 12: card vs CPU bits: preprocess "
+        f"{res['preprocess_card_equals_cpu']}, patch resize "
+        f"{res['resize_card_equals_cpu']}")
+
+    h, w = imgs[0].shape
+    for label, flags, mode, dtype in PICK_SETTINGS:
+        flops, n_windows = picker_flops(mode, h, w, patch)
+        # the score maps against JAX's float32 maps of the same inputs,
+        # with cuBLAS's TF32 on process-wide: scoring pins float32 itself
+        # and gives the caller's setting back
+        errs = []
+        for seed in PICKER_SEEDS:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            if mode == "fcn":
+                got = infer.score_micrograph_fcn(
+                    sd["fcn"], imgs[seed], patch_size=patch, dtype=dtype)
+            else:
+                got = infer.score_micrograph_patches(
+                    sd["patch"], imgs[seed], patch_size=patch, dtype=dtype)
+            if not torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError(f"{label}: scoring did not restore "
+                                     "the caller's TF32 setting")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            want = golden[f"mic_{seed}_{mode}"]
+            if tuple(got.shape) != want.shape:
+                raise AssertionError(f"{label}: map {tuple(got.shape)} vs "
+                                     f"{want.shape}")
+            errs.append(float(np.abs(got.cpu().numpy() - want).max()))
+        if max(errs) > MAP_TOL[dtype]:
+            raise AssertionError(f"{label}: score map max abs err "
+                                 f"{max(errs)} > {MAP_TOL[dtype]}")
+        # through the CLI, twice: the same bytes
+        outs, walls = [], []
+        for rep in range(2):
+            out = os.path.join(WORK, f"pick_{label}_{rep}")
+            torch.cuda.reset_peak_memory_stats()
+            _, wall, _ = cli("pick", ckpt, mrc_dir, out, *flags)
+            peak_mem = torch.cuda.max_memory_allocated()
+            outs.append(out)
+            walls.append(wall)
+        for seed in PICKER_SEEDS:
+            f = f"mic_{seed}.box"
+            a, b2 = (open(os.path.join(o, f), "rb").read() for o in outs)
+            if a != b2 or not a:
+                raise AssertionError(f"{label}: {f} differs between runs")
+        entry = {
+            "map_max_abs_err": errs, "map_tol": MAP_TOL[dtype],
+            "cold_s_per_micrograph": walls[0] / len(PICKER_SEEDS),
+            "s_per_micrograph": walls[1] / len(PICKER_SEEDS),
+            "windows_per_s": n_windows * len(PICKER_SEEDS) / walls[1],
+            "windows": n_windows, "peak_device_bytes": peak_mem,
+            "gflop_per_micrograph": flops / 1e9,
+            "flop_bound_ms": flops / PEAK_FLOPS[dtype] * 1e3,
+        }
+        if dtype == "float32":
+            # JAX's own map through the port's peak picking on the card:
+            # JAX's BOX bytes; the port's picks: JAX's cells up to
+            # near-ties
+            entry["picks"] = {}
+            for seed in PICKER_SEEDS:
+                want_path = os.path.join(PICKER, f"picks_{mode}",
+                                         f"mic_{seed}.box")
+                smap = golden[f"mic_{seed}_{mode}"]
+                coords = infer.picks_from_score_map(
+                    smap, PICKER_PARTICLE, mode=mode, device=dev)
+                text, _ = render_box(coords[:, :2] - PICKER_PARTICLE / 2,
+                                     coords[:, 2], PICKER_PARTICLE)
+                if text != open(want_path).read():
+                    raise AssertionError(f"{label} mic_{seed}: peaks of "
+                                         "JAX's map differ from JAX's")
+                entry["picks"][seed] = check_picks_against_jax(
+                    os.path.join(outs[1], f"mic_{seed}.box"), want_path,
+                    smap, mode)
+        if label == "patch":
+            entry["row_chunks"] = row_chunk_readings(
+                infer, sd["patch"], imgs[0], patch)
+        raw_t = raws[0]
+        wall_p, busy, top = device_busy(lambda: infer.pick_micrograph(
+            params, raw_t, PICKER_PARTICLE, mode=mode, dtype=dtype,
+            device=dev))
+        entry.update(profiled_wall_s=wall_p, device_busy_s=busy,
+                     top_kernels_s=top)
+        res["settings"][label] = entry
+        log(f"phase 12a: {label}: map max abs err {max(errs):.3g} (tol "
+            f"{MAP_TOL[dtype]}); {entry['s_per_micrograph']:.3f} s per "
+            f"micrograph warm ({entry['cold_s_per_micrograph']:.3f} cold), "
+            f"{entry['windows_per_s']:.0f} windows/s; peak device memory "
+            f"{peak_mem / 2**30:.2f} GiB; {flops / 1e12:.3f} TFLOP, bound "
+            f"{entry['flop_bound_ms']:.2f} ms; repeat run byte-identical"
+            + (f"; picks (n, near-tie) {entry['picks']}"
+               if "picks" in entry else ""))
+        log("  device busy share: " + (
+            "not measured (the profiler saw no device events)"
+            if busy is None else
+            f"{busy:.4f} s of a {wall_p:.4f} s profiled pick = "
+            f"{100 * busy / wall_p:.1f}%"))
+        for name, sec in top[:4]:
+            log(f"    {sec * 1e3:9.3f} ms  {name[:90]}")
+        for rows, r in entry.get("row_chunks", {}).items():
+            log(f"  row chunk {rows}: scoring {r['ms']:.1f} ms, peak "
+                f"device memory {r['peak_bytes'] / 2**30:.2f} GiB, map "
+                f"max abs diff from chunk {infer.ROW_CHUNK}: "
+                f"{r['diff']:.3g}")
+
+    # 12b: the device NMS against the host loop
+    res["nms"] = {}
+    for p in NMS_SIZES:
+        rng = np.random.default_rng(p)
+        yx = rng.integers(0, 8 * int(np.sqrt(p)), size=(p, 2))
+        scores = rng.random(p).astype(np.float32)
+        thr = 9 / 2.0
+        greedy_suppress_device(yx, scores, thr, device=dev)   # warm
+        t = time.perf_counter()
+        keep_dev = greedy_suppress_device(yx, scores, thr, device=dev)
+        dev_s = time.perf_counter() - t
+        t = time.perf_counter()
+        keep_host = infer.greedy_suppress_host(yx, scores, thr)
+        host_s = time.perf_counter() - t
+        if not np.array_equal(keep_dev, keep_host):
+            raise AssertionError(f"NMS P={p}: device keep mask differs")
+        res["nms"][p] = {"device_s": dev_s, "host_s": host_s,
+                         "kept": int(keep_host.sum())}
+        log(f"phase 12b: NMS P={p}: keep masks equal "
+            f"({int(keep_host.sum())} kept); device {dev_s * 1e3:.1f} ms, "
+            f"host loop {host_s * 1e3:.1f} ms")
+    return res
+
+
+def phase_utilities():
+    """Phase 12c: ``convert``, ``score`` (rasterized on the card, and
+    ``--match distance``) and ``build_subsets`` through the CLI, against
+    the JAX digests and the executed-reference goldens."""
+    import numpy as np
+
+    from repic_tpu_torch.utils.synthetic import (
+        output_digests, subsets_membership, write_subsets_fixture,
+    )
+
+    with open(UTILITIES_DIGESTS) as f:
+        want = json.load(f)
+    res = {}
+    t = time.time()
+    n_files = 0
+    for picker in sorted(os.listdir(EXAMPLES)):
+        for in_fmt, out_fmt in CONVERT_CHAINS:
+            src = (os.path.join(EXAMPLES, picker) if in_fmt == "box" else
+                   os.path.join(WORK, "convert", picker, f"box_{in_fmt}"))
+            files = sorted(os.path.join(src, f) for f in os.listdir(src)
+                           if f.endswith("." + in_fmt))
+            out = os.path.join(WORK, "convert", picker,
+                               f"{in_fmt}_{out_fmt}")
+            cli("convert", *files, out, "-f", in_fmt, "-t", out_fmt, "-b",
+                BOX, "--quiet")
+            got = output_digests(out, ("." + out_fmt,))
+            if got != want["convert"][f"{picker}/{in_fmt}_{out_fmt}"]:
+                raise AssertionError(f"convert {picker} {in_fmt}->{out_fmt}"
+                                     ": bytes differ from the JAX digests")
+            n_files += len(got)
+    res["convert"] = {"files": n_files, "wall_s": time.time() - t}
+    log(f"phase 12c: convert: {n_files} files in {len(CONVERT_CHAINS)} "
+        f"chains x 3 pickers equal the JAX digests "
+        f"({res['convert']['wall_s']:.2f} s)")
+
+    golden = {}
+    with open(os.path.join(REPO, "tests", "golden",
+                           "ref_scores_cryolo_vs_topaz_10017.tsv")) as f:
+        next(f)
+        for line in f:
+            name, *vals = line.split("\t")
+            golden[name] = [float(v) for v in vals]
+    gt = sorted(os.path.join(EXAMPLES, "crYOLO", f)
+                for f in os.listdir(os.path.join(EXAMPLES, "crYOLO")))
+    pk = sorted(os.path.join(EXAMPLES, "topaz", f)
+                for f in os.listdir(os.path.join(EXAMPLES, "topaz")))
+    out = os.path.join(WORK, "score")
+    _, wall, _ = cli("score", "-g", *gt, "-p", *pk, "--out_dir", out)
+    rows = {}
+    with open(os.path.join(out, "particle_set_comp.tsv")) as f:
+        next(f)
+        for line in f:
+            name, *vals = line.split("\t")
+            rows[name] = [float(v) for v in vals]
+    if sorted(rows) != sorted(golden):
+        raise AssertionError("score: micrographs differ from the golden")
+    worst = max(float(np.max(np.abs(np.array(rows[k]) - golden[k])
+                             / np.maximum(np.abs(golden[k]), 1e-30)))
+                for k in golden)
+    if worst > 1e-6:
+        raise AssertionError(f"score: rel err {worst} > 1e-6")
+    res["score"] = {"micrographs": len(rows), "max_rel_err": worst,
+                    "wall_s": wall}
+    log(f"phase 12c: score (rasterized on cuda): 12 rows within rel "
+        f"{worst:.2g} of the executed reference ({wall:.2f} s)")
+
+    fixture = os.path.join(REPO, "tests", "fixtures", "distance")
+    with open(os.path.join(REPO, "tests", "golden",
+                           "ref_distance_stats.json")) as f:
+        stats = json.load(f)
+    out = os.path.join(WORK, "distance")
+    gt = sorted(os.path.join(fixture, f) for f in os.listdir(fixture)
+                if f.endswith(".star"))
+    pk = sorted(os.path.join(fixture, f) for f in os.listdir(fixture)
+                if f.endswith(".box"))
+    cli("score", "-g", *gt, "-p", *pk, "--match", "distance",
+        "--gt_format", "star", "--box_size", stats["particle_size"],
+        "--dist_rate", stats["rate"], "--out_dir", out)
+    if open(os.path.join(out, "results.txt")).read() != open(os.path.join(
+            REPO, "tests", "golden", "ref_distance_results.txt")).read():
+        raise AssertionError("score --match distance: results.txt differs")
+    log("phase 12c: score --match distance: results.txt equals the "
+        "executed reference's")
+
+    res["build_subsets"] = {}
+    for label, flags in (("default", []), ("ignore_test",
+                                           ["--ignore_test"])):
+        root = os.path.join(WORK, "subsets_" + label)
+        defocus, box_dir, mrc_dir = write_subsets_fixture(root)
+        out = os.path.join(root, "out")
+        cli("build_subsets", defocus, box_dir, mrc_dir, out, *flags)
+        got = subsets_membership(out)
+        if got != want["build_subsets"][label]:
+            raise AssertionError(f"build_subsets {label}: membership "
+                                 "differs from the JAX digest")
+        res["build_subsets"][label] = {k: len(v) for k, v in got.items()}
+    log(f"phase 12c: build_subsets: split membership equals the JAX "
+        f"digest {res['build_subsets']}")
+    return res
+
+
 # -- A/B passes: one tree's directory runs, for a before/after ----------
 
 #: warm synthetic_256 pairs (prefetch on, off) per --passes process
@@ -2136,6 +2573,10 @@ def main() -> int:
     # -- phase 11: the engine and the serve daemon --------------------
     phase11 = timed("11", phase_serve, synth, outs)
 
+    # -- phase 12: the CNN picker and the host utilities --------------
+    phase12 = {"picker": timed("12ab", phase_picker),
+               "utilities": timed("12c", phase_utilities)}
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -2173,6 +2614,7 @@ def main() -> int:
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
               "phase9": phase9, "phase10": phase10, "phase11": phase11,
+              "phase12": phase12,
               "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

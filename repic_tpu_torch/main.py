@@ -3,8 +3,9 @@
 Each command module exposes ``add_arguments(parser)`` and
 ``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
 directory consensus), the two-phase pair ``get_cliques`` +
-``run_ilp``, ``report`` / ``trace`` over a run's directory, and the
-``serve`` daemon.
+``run_ilp``, ``report`` / ``trace`` over a run's directory, the
+``serve`` daemon, the CNN picker's ``pick``, and the host utilities
+``convert``, ``score``, ``build_subsets`` and ``get_examples``.
 """
 
 import argparse
@@ -20,6 +21,11 @@ COMMANDS = {
     "report": "repic_tpu_torch.commands.report",
     "trace": "repic_tpu_torch.commands.trace",
     "serve": "repic_tpu_torch.commands.serve",
+    "pick": "repic_tpu_torch.commands.pick",
+    "convert": "repic_tpu_torch.utils.coords",
+    "score": "repic_tpu_torch.utils.scoring",
+    "build_subsets": "repic_tpu_torch.utils.subsets",
+    "get_examples": "repic_tpu_torch.commands.get_examples",
 }
 
 

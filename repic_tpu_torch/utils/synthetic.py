@@ -1,6 +1,7 @@
 """Seeded synthetic inputs: picker directories at EMPIAR-10017
 density, the project's dense-field stress field and k = 5 mixed-size
-ensemble, and packings whose rounding candidates nearly tie.
+ensemble, packings whose rounding candidates nearly tie, 4096 x 4096
+micrographs for the CNN picker and a ``build_subsets`` input.
 
 Each micrograph holds true particles on a jittered grid (about 676 on
 a 3,700-pixel field, spaced wider than an IoU of 0.3 reaches for box
@@ -212,6 +213,75 @@ def write_cell_dir(cell: str, out_dir: str, m: int, seed: int = 0):
     c = CELLS[cell]
     c["write"](out_dir, m, seed)
     return c["box_size"]
+
+
+#: edge of the synthetic micrographs: EMPIAR-10017's 4096 x 4096
+MICROGRAPH_SIZE = 4096
+
+
+def synthetic_micrograph(seed: int, size: int = MICROGRAPH_SIZE,
+                         box: int = 180):
+    """A seeded ``(size, size)`` float32 micrograph at 10017's density:
+    unit Gaussian noise plus 600-950 dark particle-like Gaussian blobs
+    (sigma box/6, amplitude 1.5-3) whose centres keep a box-half from
+    the edges.  Returns ``(image, centres)``, centres as ``(n, 2)``
+    float32 (x, y) in pixels."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((size, size), dtype=np.float32)
+    n = int(rng.integers(600, 951))
+    half = box // 2
+    centres = rng.uniform(half, size - half, size=(n, 2)).astype(np.float32)
+    amp = rng.uniform(1.5, 3.0, size=n).astype(np.float32)
+    sigma = box / 6.0
+    r = int(3 * sigma)
+    offs = np.arange(-r, r + 1, dtype=np.float32)
+    for (x, y), a in zip(centres, amp):
+        cx, cy = int(round(float(x))), int(round(float(y)))
+        gx = np.exp(-0.5 * ((offs + cx - x) / sigma) ** 2)
+        gy = np.exp(-0.5 * ((offs + cy - y) / sigma) ** 2)
+        y0, y1 = max(cy - r, 0), min(cy + r + 1, size)
+        x0, x1 = max(cx - r, 0), min(cx + r + 1, size)
+        blob = (a * np.outer(gy, gx)).astype(np.float32)
+        img[y0:y1, x0:x1] -= blob[y0 - (cy - r):y1 - (cy - r),
+                                  x0 - (cx - r):x1 - (cx - r)]
+    return img, centres
+
+
+def write_subsets_fixture(root: str, n: int = 40, seed: int = 2):
+    """A ``build_subsets`` input under ``root``: ``mrc/`` with ``n``
+    8 x 8 MRC files, ``box/`` with one BOX file each, and
+    ``defocus.txt`` (``name dx dy`` per micrograph, seeded).  Returns
+    ``(defocus_file, box_dir, mrc_dir)``."""
+    from repic_tpu_torch.utils import mrc
+
+    box_dir = os.path.join(root, "box")
+    mrc_dir = os.path.join(root, "mrc")
+    os.makedirs(box_dir, exist_ok=True)
+    os.makedirs(mrc_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        base = f"mic_{i:03d}"
+        mrc.write_mrc(os.path.join(mrc_dir, base + ".mrc"),
+                      np.zeros((8, 8), np.float32))
+        with open(os.path.join(box_dir, base + ".box"), "w") as f:
+            f.write("1\t1\t4\t4\t0.5\n")
+        d = rng.uniform(1e4, 4e4)
+        lines.append(f"{base}.mrc\t{d:.1f}\t{d:.1f}")
+    defocus = os.path.join(root, "defocus.txt")
+    with open(defocus, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return defocus, box_dir, mrc_dir
+
+
+def subsets_membership(out_dir: str) -> dict:
+    """``build_subsets``'s split membership: each output directory
+    (relative to ``out_dir``) with the sorted names it links."""
+    out = {}
+    for d, _, files in sorted(os.walk(out_dir)):
+        if files:
+            out[os.path.relpath(d, out_dir)] = sorted(files)
+    return out
 
 
 def file_sha256(path: str) -> str:

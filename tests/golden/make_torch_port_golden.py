@@ -90,8 +90,30 @@ artifact fetched over HTTP, the job document projected by
 :func:`~repic_tpu_torch.utils.synthetic.journal_view`, and the request
 journal by :func:`~repic_tpu_torch.utils.synthetic.serve_journal_view`.
 
+And it writes the CNN picker's goldens (``--only picker``) under
+``tests/golden/torch_port_picker/``:
+
+* ``deep.ckpt`` -- ``PickerCNN().init(PRNGKey(0))`` (the deep
+  architecture) written by ``repic_tpu.models.checkpoint.save_checkpoint``
+  with particle size 180;
+* ``maps.npz`` -- for each seed of :data:`PICKER_SEEDS`, the JAX score
+  maps of ``utils/synthetic.py: synthetic_micrograph(seed)`` (4096 x
+  4096), preprocessed as ``pick_micrograph`` does, in ``patch`` and
+  ``fcn`` mode (float32);
+* ``picks_patch/`` and ``picks_fcn/`` -- the BOX files the JAX ``pick``
+  command writes for those micrographs.
+
+And the host utilities' digests (``--only utilities``),
+``tests/golden/torch_port_utilities_digests.json``: the sha256 of every
+file the JAX ``convert`` command writes from each picker directory of
+examples/10017 -- BOX to STAR, TSV and BOX, then each of those STAR and
+TSV outputs to STAR, TSV and BOX (box size 180) -- and the split
+membership of ``build_subsets`` on ``utils/synthetic.py:
+write_subsets_fixture`` (with and without ``--ignore_test``).
+
 ``--only flags`` / ``--only runtime`` / ``--only telemetry`` /
-``--only serve`` rewrite only that file.
+``--only serve`` / ``--only picker`` / ``--only utilities`` rewrite only
+that file (or directory).
 """
 
 import argparse
@@ -146,6 +168,18 @@ SERVE_DIGESTS = os.path.join(REPO, "tests", "golden",
                              "torch_port_serve_digests.json")
 SERVE_SETTINGS_ORDER = ("lp_device_fused", "lp_device_pallas", "lp_device")
 TELEMETRY_SETTINGS = ("lp_device", "lp_device_pallas", "lp_device_fused")
+PICKER_DIR = os.path.join(REPO, "tests", "golden", "torch_port_picker")
+#: seeds of the picker's 4096 x 4096 synthetic micrographs
+PICKER_SEEDS = (0, 1)
+PICKER_PARTICLE = 180
+PICKER_MODES = ("patch", "fcn")
+UTILITIES_DIGESTS = os.path.join(REPO, "tests", "golden",
+                                 "torch_port_utilities_digests.json")
+#: convert chains: (input format, output format); star/tsv inputs are
+#: the BOX -> star/tsv outputs
+CONVERT_CHAINS = tuple(
+    [("box", o) for o in ("star", "tsv", "box")]
+    + [(i, o) for i in ("star", "tsv") for o in ("star", "tsv", "box")])
 
 
 def run_jax(setting: str, out_dir: str, in_dir: str = EXAMPLES,
@@ -452,13 +486,95 @@ def make_digests(tmp: str) -> dict:
     return golden
 
 
+def make_picker_goldens(tmp: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repic_tpu.main import main as jax_cli
+    from repic_tpu.models import infer
+    from repic_tpu.models import preprocess as pp
+    from repic_tpu.models.checkpoint import save_checkpoint
+    from repic_tpu.models.cnn import PickerCNN, fc_params_as_conv
+    from repic_tpu_torch.utils import mrc
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    shutil.rmtree(PICKER_DIR, ignore_errors=True)
+    os.makedirs(PICKER_DIR)
+    params = PickerCNN().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1)))["params"]
+    ckpt = os.path.join(PICKER_DIR, "deep.ckpt")
+    save_checkpoint(ckpt, params, {"particle_size": PICKER_PARTICLE,
+                                   "patch_norm": "reference",
+                                   "arch": "deep"})
+    mrc_dir = os.path.join(tmp, "mrc")
+    os.makedirs(mrc_dir)
+    maps = {}
+    patch = PICKER_PARTICLE // pp.BIN_SIZE
+    for seed in PICKER_SEEDS:
+        raw, _ = synthetic_micrograph(seed)
+        mrc.write_mrc(os.path.join(mrc_dir, f"mic_{seed}.mrc"), raw)
+        img = pp.preprocess_micrograph(jnp.asarray(raw))
+        maps[f"mic_{seed}_patch"] = np.asarray(
+            infer.score_micrograph_patches(params, img, patch_size=patch))
+        maps[f"mic_{seed}_fcn"] = np.asarray(infer.score_micrograph_fcn(
+            fc_params_as_conv(params), img, patch_size=patch))
+        print("picker maps", seed, flush=True)
+    np.savez_compressed(os.path.join(PICKER_DIR, "maps.npz"), **maps)
+    for mode in PICKER_MODES:
+        out = os.path.join(tmp, f"picks_{mode}")
+        jax_cli(["pick", ckpt, mrc_dir, out, "--mode", mode])
+        dest = os.path.join(PICKER_DIR, f"picks_{mode}")
+        os.makedirs(dest)
+        for f in sorted(os.listdir(out)):
+            if f.endswith(".box"):
+                shutil.copy(os.path.join(out, f), dest)
+
+
+def make_utilities_digests(tmp: str) -> dict:
+    from repic_tpu.main import main as jax_cli
+    from repic_tpu_torch.utils.synthetic import (
+        output_digests,
+        subsets_membership,
+        write_subsets_fixture,
+    )
+
+    convert = {}
+    for picker in sorted(os.listdir(EXAMPLES)):
+        for in_fmt, out_fmt in CONVERT_CHAINS:
+            src = (os.path.join(EXAMPLES, picker) if in_fmt == "box" else
+                   os.path.join(tmp, picker, f"box_{in_fmt}"))
+            files = sorted(os.path.join(src, f) for f in os.listdir(src)
+                           if f.endswith("." + in_fmt))
+            out = os.path.join(tmp, picker, f"{in_fmt}_{out_fmt}")
+            jax_cli(["convert", *files, out, "-f", in_fmt, "-t", out_fmt,
+                     "-b", str(BOX_SIZE), "--quiet"])
+            convert[f"{picker}/{in_fmt}_{out_fmt}"] = output_digests(
+                out, ("." + out_fmt,))
+    subsets = {}
+    for label, flags in (("default", []), ("ignore_test", ["--ignore_test"])):
+        root = os.path.join(tmp, "subsets_" + label)
+        defocus, box_dir, mrc_dir = write_subsets_fixture(root)
+        out = os.path.join(root, "out")
+        jax_cli(["build_subsets", defocus, box_dir, mrc_dir, out, *flags])
+        subsets[label] = subsets_membership(out)
+    return {"convert": convert, "build_subsets": subsets}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only",
-                    choices=["flags", "runtime", "telemetry", "serve"])
+                    choices=["flags", "runtime", "telemetry", "serve",
+                             "picker", "utilities"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
+    if args.only in (None, "utilities"):
+        with tempfile.TemporaryDirectory() as tmp:
+            write_json(UTILITIES_DIGESTS, make_utilities_digests(tmp))
+    if args.only in (None, "picker"):
+        with tempfile.TemporaryDirectory() as tmp:
+            make_picker_goldens(tmp)
     if args.only in (None, "serve"):
         with tempfile.TemporaryDirectory() as tmp:
             write_json(SERVE_DIGESTS, make_serve_digests(tmp))

@@ -8,8 +8,8 @@
 * The committed goldens (``tests/golden/torch_port_10017``, which
   ``chip_smoke.py`` holds the card's output to) equal a live JAX run.
 * Importing the port pulls in neither ``jax`` nor any ``repic_tpu``
-  module; no file of the port, ``chip_smoke.py`` or the card-only
-  tests imports them.
+  module (nor ``flax``, ``pandas`` or ``msgpack``); no file of the
+  port, ``chip_smoke.py`` or the card-only tests imports them.
 * The CLI runs on ``cuda`` by default and fails where there is none.
 * Every test that needs the card carries the ``cuda`` marker and
   takes the fixture that skips it here.
@@ -143,9 +143,23 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.serve.jobs',"
         " 'repic_tpu_torch.serve.batcher',"
         " 'repic_tpu_torch.serve.daemon',"
-        " 'repic_tpu_torch.commands.serve'} <= new\n"
+        " 'repic_tpu_torch.commands.serve',"
+        " 'repic_tpu_torch.utils.mrc',"
+        " 'repic_tpu_torch.models',"
+        " 'repic_tpu_torch.models.cnn',"
+        " 'repic_tpu_torch.models.checkpoint',"
+        " 'repic_tpu_torch.models.preprocess',"
+        " 'repic_tpu_torch.models.infer',"
+        " 'repic_tpu_torch.ops.nms',"
+        " 'repic_tpu_torch.commands.pick',"
+        " 'repic_tpu_torch.utils.table',"
+        " 'repic_tpu_torch.utils.coords',"
+        " 'repic_tpu_torch.utils.matching',"
+        " 'repic_tpu_torch.utils.scoring',"
+        " 'repic_tpu_torch.utils.subsets',"
+        " 'repic_tpu_torch.commands.get_examples'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repic_tpu'))\n"
+        "('jax', 'jaxlib', 'repic_tpu', 'flax', 'pandas', 'msgpack'))\n"
         "print(len(bad), bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -169,6 +183,11 @@ def _imported_modules(path):
             yield node.module
 
 
+#: what no file of the port (nor chip_smoke.py) may import: JAX, the JAX
+#: package, and the libraries the card machine does not have
+FORBIDDEN = ("jax", "jaxlib", "repic_tpu", "flax", "pandas", "msgpack")
+
+
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(REPO, "repic_tpu_torch", "**", "*.py"),
                       recursive=True)
@@ -187,7 +206,14 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "runtime/compilecache.py", "pipeline/engine.py",
                 "serve/__init__.py", "serve/tenancy.py",
                 "serve/autoscale.py", "serve/jobs.py", "serve/batcher.py",
-                "serve/daemon.py", "commands/serve.py"):
+                "serve/daemon.py", "commands/serve.py",
+                # the CNN picker's inference path and the host utilities
+                "utils/mrc.py", "models/__init__.py", "models/cnn.py",
+                "models/checkpoint.py", "models/preprocess.py",
+                "models/infer.py", "ops/nms.py", "commands/pick.py",
+                "utils/table.py", "utils/coords.py", "utils/matching.py",
+                "utils/scoring.py", "utils/subsets.py",
+                "commands/get_examples.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (
@@ -197,7 +223,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repic_tpu", "flax"), (
+            assert top not in FORBIDDEN, (
                 f"{os.path.relpath(path, REPO)} imports {mod}"
             )
 

@@ -630,3 +630,155 @@ def test_cuda_daemon_without_visible_card_raises_before_binding(
     assert proc.returncode == 3, proc.stdout + proc.stderr
     assert "CUDA" in proc.stdout
     assert not os.path.exists(os.path.join(wd, "_serve.json"))
+
+
+# -- the CNN picker and the host utilities on the card -------------------
+
+PICKER = os.path.join(REPO, "tests", "golden", "torch_port_picker")
+
+
+def _picker_params(device):
+    from repic_tpu_torch.models.checkpoint import (
+        load_checkpoint, params_from_jax,
+    )
+    from repic_tpu_torch.models.cnn import fc_params_as_conv
+
+    params, _ = load_checkpoint(os.path.join(PICKER, "deep.ckpt"))
+    return params, {
+        "patch": {k: v.to(device)
+                  for k, v in params_from_jax(params).items()},
+        "fcn": {k: v.to(device) for k, v in params_from_jax(
+            fc_params_as_conv(params)).items()},
+    }
+
+
+@pytest.mark.cuda
+def test_micrograph_preprocess_on_card_is_the_cpus_bits(cuda_device):
+    from repic_tpu_torch.models import preprocess as pp
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    raw, _ = synthetic_micrograph(0)
+    got = pp.preprocess_micrograph(torch.from_numpy(raw).to(cuda_device))
+    want = pp.preprocess_micrograph(torch.from_numpy(raw))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [16, 48, 60, 80, 96])
+def test_patch_resize_on_card_gives_the_cpus_levels(cuda_device, size):
+    """Up through the card's antialiased bilinear kernel, down through
+    the weight matrices: the rounded uint8 levels of the CPU (which are
+    the reference's), the floats within 1e-4."""
+    from repic_tpu_torch.models import preprocess as pp
+
+    rng = np.random.default_rng(size)
+    b = pp.bytescale(torch.from_numpy(
+        (rng.normal(size=(256, size, size)) * 3).astype(np.float32)))
+    want = pp.resize_patches(b, 64)
+    got = pp.resize_patches(b.to(cuda_device), 64).cpu()
+    assert torch.equal(torch.round(got), torch.round(want))
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32_matmul", [False, True])
+@pytest.mark.parametrize("mode", ["patch", "fcn"])
+def test_score_maps_on_card_match_the_jax_goldens(cuda_device, mode,
+                                                 tf32_matmul):
+    """The 4096 x 4096 micrograph of seed 0: float32 within 1e-4 of the
+    JAX map, bfloat16 within 3e-2, whatever the caller's cuBLAS TF32
+    setting (which scoring gives back)."""
+    from repic_tpu_torch.models import infer
+    from repic_tpu_torch.models import preprocess as pp
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    _, sd = _picker_params(cuda_device)
+    raw, _ = synthetic_micrograph(0)
+    img = pp.preprocess_micrograph(torch.from_numpy(raw).to(cuda_device))
+    want = np.load(os.path.join(PICKER, "maps.npz"))[f"mic_0_{mode}"]
+    fn = (infer.score_micrograph_fcn if mode == "fcn"
+          else infer.score_micrograph_patches)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32_matmul
+    try:
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+            got = fn(sd[mode], img, patch_size=60, dtype=dtype).cpu().numpy()
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32_matmul
+            assert got.shape == want.shape
+            assert float(np.abs(got - want).max()) <= tol, dtype
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["patch", "fcn"])
+def test_peaks_of_the_jax_map_on_card_give_jax_picks(cuda_device, mode):
+    from repic_tpu_torch.models import infer
+    from repic_tpu_torch.utils.box_io import render_box
+
+    smap = np.load(os.path.join(PICKER, "maps.npz"))[f"mic_1_{mode}"]
+    coords = infer.picks_from_score_map(smap, 180, mode=mode,
+                                        device=cuda_device)
+    text, _ = render_box(coords[:, :2] - 90, coords[:, 2], 180)
+    with open(os.path.join(PICKER, f"picks_{mode}", "mic_1.box")) as f:
+        assert text == f.read()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1024, 4096])
+def test_device_nms_on_card_equals_the_host_loop(cuda_device, p):
+    from repic_tpu_torch.models.infer import greedy_suppress_host
+    from repic_tpu_torch.ops.nms import greedy_suppress_device
+
+    rng = np.random.default_rng(p)
+    yx = rng.integers(0, 8 * int(np.sqrt(p)), size=(p, 2))
+    scores = rng.random(p).astype(np.float32)
+    np.testing.assert_array_equal(
+        greedy_suppress_device(yx, scores, 4.5, device=cuda_device),
+        greedy_suppress_host(yx, scores, 4.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["patch", "fcn"])
+def test_pick_cli_on_card_is_repeatable_and_the_cpus(cuda_device, tmp_path,
+                                                     mode):
+    from repic_tpu_torch.main import main as cli
+    from repic_tpu_torch.utils import mrc
+
+    rng = np.random.default_rng(3)
+    mrc_dir = tmp_path / "mrc"
+    mrc_dir.mkdir()
+    for i in range(2):
+        mrc.write_mrc(str(mrc_dir / f"m{i}.mrc"),
+                      rng.normal(size=(1024, 1024)).astype(np.float32))
+    ckpt = os.path.join(PICKER, "deep.ckpt")
+    runs = {}
+    for tag, extra in (("a", []), ("b", []), ("cpu", ["--device", "cpu"])):
+        out = tmp_path / tag
+        cli(["pick", ckpt, str(mrc_dir), str(out), "--mode", mode, *extra])
+        runs[tag] = {f: (out / f).read_text() for f in ("m0.box", "m1.box")}
+    assert runs["a"] == runs["b"]
+    for f, text in runs["a"].items():
+        got = [line.split()[:2] for line in text.splitlines()]
+        want = [line.split()[:2] for line in runs["cpu"][f].splitlines()]
+        assert sorted(got) == sorted(want), f
+
+
+@pytest.mark.cuda
+def test_segmentation_scores_on_card_equal_the_cpus(cuda_device):
+    from repic_tpu_torch.utils.scoring import get_segmentation_scores
+    from repic_tpu_torch.utils.table import Table
+
+    rng = np.random.default_rng(5)
+
+    def boxes(n):
+        return Table(dict(zip("xywh", (rng.integers(-20, 4000, n),
+                                       rng.integers(-20, 4000, n),
+                                       np.full(n, 180), np.full(n, 180)))))
+
+    for _ in range(3):
+        gt, pk = boxes(900), boxes(700)
+        assert get_segmentation_scores(
+            gt, pk, mrc_w=4096, mrc_h=4096, device=cuda_device
+        ) == get_segmentation_scores(gt, pk, mrc_w=4096, mrc_h=4096,
+                                     device="cpu")
