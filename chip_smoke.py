@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6 to 12, print the ``{"kernels": [...]}`` line
+5. after phases 6 to 13, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -152,7 +152,28 @@ Phases, each fatal on failure:
    ``tests/golden/ref_scores_cryolo_vs_topaz_10017.tsv``), ``score
    --match distance`` (``results.txt`` equal to the executed
    reference's) and ``build_subsets`` (split membership equal to the
-   JAX digest).
+   JAX digest);
+13. the picker's training half and the iterative loop (none reaches a
+   CUDA kernel of this repo; ``tests/golden/torch_port_training/``):
+   (a) ``python -m repic_tpu_torch fit`` in a process of its own, deep
+   architecture, batch 128, :data:`FIT_EPOCHS` epochs, on four seeded
+   4096 x 4096 micrographs labelled at their planted centres (box 180)
+   and validated on a fifth -- twice in float32, whose checkpoints must
+   be byte-identical, and once ``--bf16`` (within 1.5 points of the
+   float32 val error); the best val error under :data:`FIT_VAL_LIMIT`;
+   prints patches, steps per second, seconds per epoch, peak device
+   memory, a step's FLOP bound, and the device's busy share of a
+   two-epoch fit in this process under ``torch.profiler``; (b) one
+   update on the card from the committed JAX step (parameters, batch,
+   labels, dropout mask) within the CPU test's tolerances, the learning
+   rates bitwise optax's; (c) ``pick`` with (a)'s checkpoint on two
+   held-out micrographs: F1 against the planted centres, candidates per
+   micrograph, whether the device NMS ran; (d) ``iter_config`` then
+   ``iter_pick`` through the CLI with the builtin deep/wide/slim
+   ensemble on 12 micrographs (``--semi_auto`` from the planted
+   centres, one round, train 100%, ``--score``): seconds per stage from
+   ``iter_pick.log``, the final test-split F1 above 0.5, and a rerun
+   that must resume and do nothing.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -2136,6 +2157,381 @@ def phase_utilities():
     return res
 
 
+# -- phase 13: the picker's training half and the iterative loop -------
+
+#: the JAX training goldens (tests/golden/make_torch_port_golden.py
+#: --only training): one update step's inputs and outputs
+TRAINING = os.path.join(REPO, "tests", "golden", "torch_port_training")
+#: seeds of phase 13's 4096 x 4096 micrographs: fit's training and
+#: validation sets, 13c's held-out pair, 13d's ensemble data
+FIT_TRAIN_SEEDS = (100, 101, 102, 103)
+FIT_VAL_SEED = 104
+HELD_OUT_SEEDS = (200, 201)
+ITER_SEEDS = tuple(range(300, 312))
+FIT_BATCH = 128
+FIT_EPOCHS = 30
+#: the reference test's limit on the planted-blob fixture (the CPU tests
+#: reach 0%): the card's best validation error must stay under it
+FIT_VAL_LIMIT = 10.0
+BF16_MARGIN = 1.5
+ITER_F1_LIMIT = 0.5
+#: deep-architecture float32 FLOPs of one 64 x 64 window (phase 12's
+#: picker_flops per window); a training step is about three forwards
+WINDOW_FLOPS = 9.0e6
+
+
+def _write_labelled(mrc_dir, box_dir, seeds):
+    """Seeded 4096 x 4096 micrographs and BOX labels at their planted
+    centres (box 180)."""
+    import numpy as np
+
+    from repic_tpu_torch.utils import mrc
+    from repic_tpu_torch.utils.box_io import write_box
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    os.makedirs(mrc_dir, exist_ok=True)
+    os.makedirs(box_dir, exist_ok=True)
+    n = 0
+    for seed in seeds:
+        img, centres = synthetic_micrograph(seed)
+        mrc.write_mrc(os.path.join(mrc_dir, f"mic_{seed}.mrc"), img)
+        write_box(os.path.join(box_dir, f"mic_{seed}.box"),
+                  centres.astype(np.float64) - BOX / 2,
+                  np.ones(len(centres)), BOX)
+        n += len(centres)
+    return n
+
+
+def _fit_process(args, out):
+    """``python -m repic_tpu_torch fit ...`` in a process of its own;
+    returns ``(stdout, wall_s)``.  A non-zero exit is fatal."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repic_tpu_torch", "fit", *map(str, args)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
+    wall = time.time() - t
+    with open(os.path.join(OUT, f"fit_{os.path.basename(out)}.log"),
+              "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13a: fit exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def _fit_readings(model_dir):
+    """Steps per second (the train_epoch events after epoch 0), epochs
+    run and the allocator's peak from a fit run's telemetry."""
+    from repic_tpu_torch.telemetry.events import read_events
+
+    epochs = [e for e in read_events(model_dir)
+              if e.get("ev") == "event" and e.get("name") == "train_epoch"]
+    rates = [e["steps_per_sec"] for e in epochs if "steps_per_sec" in e]
+    mem = {s["labels"]["stat"]: s["value"] for s in json.load(open(
+        os.path.join(model_dir, "_metrics.json")))["metrics"].get(
+            "repic_device_memory_bytes", {}).get("samples", [])}
+    return {"epochs": len(epochs) - 1,
+            "steps_per_sec": sorted(rates)[len(rates) // 2] if rates else None,
+            "val_error": [e["val_error"] for e in epochs],
+            "peak_bytes": mem.get("peak_bytes_in_use")}
+
+
+def phase_fit():
+    """Phase 13a/b/c: ``fit`` at full width in a process of its own, run
+    twice for the checkpoint bytes and once in bfloat16; one step from
+    the JAX golden on the card; ``pick`` with the trained checkpoint."""
+    import torch
+
+    from repic_tpu_torch.models.checkpoint import load_checkpoint
+    from repic_tpu_torch.models.data import load_dataset
+    from repic_tpu_torch.models.train import TrainConfig, fit
+
+    res = {"card": smi()}
+    root = os.path.join(WORK, "fit")
+    train = (os.path.join(root, "train_mrc"), os.path.join(root, "train_box"))
+    val = (os.path.join(root, "val_mrc"), os.path.join(root, "val_box"))
+    n_pos = _write_labelled(*train, FIT_TRAIN_SEEDS)
+    _write_labelled(*val, (FIT_VAL_SEED,))
+    runs = {}
+    for label, flags in (("f32_a", []), ("f32_b", []), ("bf16", ["--bf16"])):
+        out = os.path.join(root, label)
+        os.makedirs(out)
+        model = os.path.join(out, "model.rptpu")
+        stdout, wall = _fit_process(
+            [*train, model, "--val_mrc_dir", val[0], "--val_label_dir",
+             val[1], "--particle_size", BOX, "--batch_size", FIT_BATCH,
+             "--max_epochs", FIT_EPOCHS, "--arch", "deep", *flags], out)
+        _, meta = load_checkpoint(model)
+        runs[label] = {"wall_s": wall, "best_val_error":
+                       meta["best_val_error"], "stdout": stdout.strip(),
+                       **_fit_readings(out)}
+        with open(model, "rb") as f:
+            runs[label]["bytes"] = f.read()
+    a = runs["f32_a"]
+    m = re.search(r"train: (\d+) patches \((\d+) positive\), val: (\d+)",
+                  a["stdout"])
+    n_train, n_val = int(m.group(1)), int(m.group(3))
+    steps_per_epoch = n_train // FIT_BATCH
+    step_flops = 3 * FIT_BATCH * WINDOW_FLOPS
+    bound_ms = step_flops / PEAK_FLOPS["float32"] * 1e3
+    if runs["f32_a"]["bytes"] != runs["f32_b"]["bytes"]:
+        raise AssertionError("phase 13a: two float32 fits of one seed wrote "
+                             "different checkpoint bytes")
+    if a["best_val_error"] > FIT_VAL_LIMIT:
+        raise AssertionError(f"phase 13a: best val error "
+                             f"{a['best_val_error']} > {FIT_VAL_LIMIT}")
+    if runs["bf16"]["best_val_error"] > a["best_val_error"] + BF16_MARGIN:
+        raise AssertionError(
+            f"phase 13a: bf16 best val error {runs['bf16']['best_val_error']}"
+            f" > float32's {a['best_val_error']} + {BF16_MARGIN}")
+    for label, r in runs.items():
+        r.pop("bytes")
+        sps = r["steps_per_sec"]
+        log(f"phase 13a: fit {label}: {n_train} train patches ({n_pos} "
+            f"planted), {n_val} val, batch {FIT_BATCH}, {r['epochs']} epochs "
+            f"x {steps_per_epoch} steps in {r['wall_s']:.1f}s (process); "
+            f"{sps} steps/s, {steps_per_epoch / sps if sps else 0:.3f} s per"
+            f" epoch; best val error {r['best_val_error']:.3f}%; peak "
+            f"{(r['peak_bytes'] or 0) / 2**20:.0f} MiB")
+    log(f"phase 13a: checkpoint bytes equal over two float32 runs; a step's "
+        f"FLOP bound {step_flops / 1e9:.3f} GFLOP = {bound_ms:.4f} ms at "
+        f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s float32 against "
+        f"{1e3 / a['steps_per_sec']:.3f} ms measured ({res['card']})")
+
+    # the device's busy share of a two-epoch fit in this process
+    dev = torch.device("cuda")
+    t = time.time()
+    tr = load_dataset(*train, BOX, device=dev)
+    va = load_dataset(*val, BOX, seed=1235, device=dev)
+    load_s = time.time() - t
+    wall, busy, top = device_busy(lambda: fit(
+        *tr, *va, TrainConfig(batch_size=FIT_BATCH, max_epochs=2,
+                              verbose=False), device=dev))
+    if busy is None:
+        raise AssertionError("phase 13a: the profiler saw no device work")
+    res["profiled"] = {"load_s": load_s, "wall_s": wall, "busy_s": busy,
+                       "busy_share": busy / wall, "top_kernels_s": top}
+    log(f"phase 13a: two epochs in this process under torch.profiler: "
+        f"device busy {busy:.3f}s of {wall:.3f}s ({100 * busy / wall:.1f}%);"
+        f" loading the 5 micrographs' patches {load_s:.2f}s; top "
+        + ", ".join(f"{k[:40]} {v:.3f}s" for k, v in top[:3]))
+    res.update(runs=runs, n_train=n_train, n_val=n_val,
+               step_flops=step_flops, step_bound_ms=bound_ms)
+
+    res["step"] = phase_train_step()
+    res["pick"] = phase_trained_pick(os.path.join(root, "f32_a",
+                                                  "model.rptpu"))
+    return res
+
+
+def phase_train_step():
+    """Phase 13b: one update on the card from the committed JAX golden's
+    parameters, batch, labels and dropout mask, at the CPU test's
+    tolerances; the learning rates bitwise."""
+    import numpy as np
+    import torch
+
+    from repic_tpu_torch.models.checkpoint import params_from_jax
+    from repic_tpu_torch.models.cnn import PickerCNN
+    from repic_tpu_torch.models.infer import _fp32_flags
+    from repic_tpu_torch.models.train import learning_rate, train_step
+
+    g = dict(np.load(os.path.join(TRAINING, "step.npz")))
+
+    def tree(prefix):
+        out = {}
+        for k, v in g.items():
+            if k.startswith(prefix):
+                *path, leaf = k[len(prefix):].split("/")
+                node = out
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = v
+        return out
+
+    dev = torch.device("cuda")
+    model = PickerCNN(device="meta")
+    model.load_state_dict({k: v.to(dev) for k, v in params_from_jax(
+        tree("params/")).items()}, assign=True)
+    model.requires_grad_(True)
+    momentum = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    lr = learning_rate(0, 0.01, 8, 0.95)
+    lr_ok = lr.tobytes() == g["lr"].tobytes() and all(
+        np.array([learning_rate(c, 0.01, ds, 0.95)
+                  for c in (0, ds - 1, ds, 10 * ds)]).tobytes()
+        == g[f"lr/{ds}"].tobytes() for ds in (1, 8, 24, 184))
+    if not lr_ok:
+        raise AssertionError("phase 13b: learning rates differ from optax's")
+    with _fp32_flags():
+        loss, logits = train_step(
+            model, momentum, torch.from_numpy(g["batch"]).to(dev),
+            torch.from_numpy(g["labels"].astype(np.int64)).to(dev), lr,
+            dropout_mask=torch.from_numpy(g["mask"]).to(dev))
+    torch.cuda.synchronize()
+    loss_rel = abs(float(loss) / float(g["loss"]) - 1)
+    logit_err = float(np.abs(logits.cpu().numpy() - g["logits"]).max())
+    want_p = params_from_jax(tree("updated/"))
+    want_t = params_from_jax(tree("trace/"))
+    p_err = max(float((p.detach().cpu() - want_p[k]).abs().max())
+                for k, p in model.named_parameters())
+    t_err = max(float((momentum[k].cpu() - want_t[k]).abs().max()
+                      / want_t[k].abs().max()) for k in momentum)
+    res = {"loss_rel": loss_rel, "logits_max_abs": logit_err,
+           "params_max_abs": p_err, "momentum_max_rel": t_err}
+    if loss_rel >= 1e-6 or logit_err >= 1e-5 or p_err >= 1e-6 \
+            or t_err >= 1e-4:
+        raise AssertionError(f"phase 13b: the card's step vs the JAX golden:"
+                             f" {res}")
+    log(f"phase 13b: one step on the card from the JAX golden: loss rel "
+        f"{loss_rel:.3g}, logits {logit_err:.3g}, parameters "
+        f"{p_err:.3g}, momentum {t_err:.3g} of each leaf's max; learning "
+        "rates bitwise optax's")
+    return res
+
+
+def phase_trained_pick(model):
+    """Phase 13c: ``pick`` with 13a's checkpoint on two held-out
+    micrographs: F1 against the planted centres (``score``, rasterized
+    on the card), the candidates (local maxima) per micrograph, and
+    whether the device NMS ran."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from repic_tpu_torch.models import infer
+    from repic_tpu_torch.models import preprocess as pp
+    from repic_tpu_torch.models.checkpoint import (
+        load_checkpoint, params_from_jax,
+    )
+    from repic_tpu_torch.ops import nms
+    from repic_tpu_torch.utils.scoring import score_box_files
+    from repic_tpu_torch.utils import mrc
+
+    root = os.path.join(WORK, "held_out")
+    mrc_dir, gt_dir = os.path.join(root, "mrc"), os.path.join(root, "gt")
+    _write_labelled(mrc_dir, gt_dir, HELD_OUT_SEEDS)
+    out = os.path.join(root, "picks")
+    calls = []
+    device_nms = nms.greedy_suppress_device
+
+    def counted(yx, *a, **k):
+        calls.append(len(yx))
+        return device_nms(yx, *a, **k)
+
+    nms.greedy_suppress_device = counted
+    try:
+        _, wall, _ = cli("pick", model, mrc_dir, out)
+    finally:
+        nms.greedy_suppress_device = device_nms
+    names = sorted(f[:-4] for f in os.listdir(mrc_dir))
+    gt = [os.path.join(gt_dir, f"{n}.box") for n in names]
+    picked = [os.path.join(out, f"{n}.box") for n in names]
+    rows = score_box_files(gt, picked, device="cuda")
+    strong = score_box_files(gt, picked, conf_thresh=0.5, device="cuda")
+    params, _ = load_checkpoint(model)
+    sd = {k: v.cuda() for k, v in params_from_jax(params).items()}
+    patch = BOX // 3
+    window = max(int(0.6 * patch / infer.STEP_SIZE), 1)
+    res = {"wall_s": wall, "device_nms_calls": calls, "micrographs": {}}
+    for name, row, row_strong in zip(names, rows, strong):
+        img = pp.preprocess_micrograph(torch.from_numpy(np.ascontiguousarray(
+            mrc.read_mrc(os.path.join(mrc_dir, f"{name}.mrc")),
+            np.float32)).cuda())
+        smap = infer.score_micrograph_patches(sd, img, patch_size=patch)
+        mask = infer.local_maxima_mask(smap, window).cpu().numpy()
+        _, candidates = ndimage.label(mask)
+        picks = sum(1 for _ in open(os.path.join(out, f"{name}.box")))
+        res["micrographs"][name] = {
+            "precision": row[1], "recall": row[2], "f1": row[3],
+            "f1_score_above_half": row_strong[3],
+            "candidates": int(candidates), "picks": picks}
+        if picks == 0:
+            raise AssertionError(f"phase 13c: no pick in {name}")
+    f1 = float(np.mean([r[3] for r in rows]))
+    f1_strong = float(np.mean([r[3] for r in strong]))
+    res.update(mean_f1=f1, mean_f1_score_above_half=f1_strong)
+    reached = bool(calls)
+    res["device_nms_reached"] = reached
+    log(f"phase 13c: pick with the trained checkpoint on {len(names)} "
+        f"held-out micrographs in {wall:.2f}s: mean F1 {f1:.3f} against "
+        f"the planted centres ({f1_strong:.3f} for the picks scored above "
+        f"0.5); " + "; ".join(
+            f"{n}: {r['candidates']} candidates, {r['picks']} picks, F1 "
+            f"{r['f1']:.3f}" for n, r in res["micrographs"].items())
+        + f"; device NMS {'reached' if reached else 'not reached'} "
+        f"(from {nms.DEVICE_NMS_MIN_P} candidates; calls {calls})")
+    return res
+
+
+def _stage_seconds(log_text):
+    """Seconds per stage of an ``iter_pick.log``: predict and fit per
+    picker, consensus per split."""
+    out = {}
+    for line in log_text.splitlines():
+        m = re.search(r"\] (predict (\S+)/\S+|consensus/(\S+)|round \d+ fit "
+                      r"(\S+)).*\((\d+\.\d+)s\)$", line)
+        if m:
+            key = (f"predict {m.group(2)}" if m.group(2) else
+                   f"consensus" if m.group(3) else f"fit {m.group(4)}")
+            out[key] = round(out.get(key, 0.0) + float(m.group(5)), 3)
+    return out
+
+
+def phase_iterative():
+    """Phase 13d: ``iter_config`` and ``iter_pick`` through the CLI with
+    the builtin deep/wide/slim ensemble on 12 seeded 4096 x 4096
+    micrographs: semi-automatic round 0 from the planted centres, one
+    retraining round at the CLI's defaults, scored against the centres;
+    then the same command again, which must resume and do nothing."""
+    import numpy as np
+
+    root = os.path.join(WORK, "iterative")
+    data, labels = os.path.join(root, "mrc"), os.path.join(root, "labels")
+    _write_labelled(data, labels, ITER_SEEDS)
+    cfg = os.path.join(root, "iter_config.json")
+    out = os.path.join(root, "run")
+    cli("iter_config", data, BOX, 750, "builtin", "builtin", 4, 8,
+        "--cryolo_env", "builtin", "--deep_env", "builtin", "--topaz_env",
+        "builtin", "--out_file_path", cfg)
+    argv = ("iter_pick", cfg, 1, 100, "--out_dir", out, "--semi_auto",
+            "--manual_label_dir", labels, "--score", labels)
+    _, wall, _ = cli(*argv)
+    log_text = open(os.path.join(out, "iter_pick.log")).read()
+    state = json.load(open(os.path.join(out, "state.json")))
+    with open(os.path.join(state["rounds"][-1]["consensus"]["test"],
+                           "particle_set_comp.tsv")) as f:
+        next(f)
+        f1s = [float(line.split("\t")[3]) for line in f]
+    splits = {s: len(os.listdir(os.path.join(out, "data", s)))
+              for s in ("train", "val", "test")}
+    _, rerun_wall, _ = cli(*argv)
+    rerun_log = open(os.path.join(out, "iter_pick.log")).read()[
+        len(log_text):]
+    state_again = json.load(open(os.path.join(out, "state.json")))
+    f1 = float(np.mean(f1s))
+    res = {"wall_s": wall, "rerun_wall_s": rerun_wall, "splits": splits,
+           "stage_s": _stage_seconds(log_text), "test_f1": f1s,
+           "mean_f1": f1}
+    with open(os.path.join(OUT, "iter_pick.log"), "w") as f:
+        f.write(log_text + rerun_log)
+    if min(splits.values()) < 2:
+        raise AssertionError(f"phase 13d: splits {splits}")
+    if f1 <= ITER_F1_LIMIT:
+        raise AssertionError(f"phase 13d: final mean F1 {f1} <= "
+                             f"{ITER_F1_LIMIT}")
+    if ("resuming: rounds 0..1 already complete" not in rerun_log
+            or re.search(r"\] (predict|round \d+ fit|consensus/)", rerun_log)
+            or state_again["rounds"] != state["rounds"]):
+        raise AssertionError(f"phase 13d: the rerun was not a resume that "
+                             f"does nothing: {rerun_log[-1500:]}")
+    log(f"phase 13d: iter_pick (builtin deep/wide/slim, 1 round, train "
+        f"100%, splits {splits}) in {wall:.1f}s; seconds per stage "
+        f"{res['stage_s']}; final test-split mean F1 {f1:.3f}; the rerun "
+        f"resumed and did nothing in {rerun_wall:.2f}s")
+    return res
+
+
 # -- A/B passes: one tree's directory runs, for a before/after ----------
 
 #: warm synthetic_256 pairs (prefetch on, off) per --passes process
@@ -2577,6 +2973,10 @@ def main() -> int:
     phase12 = {"picker": timed("12ab", phase_picker),
                "utilities": timed("12c", phase_utilities)}
 
+    # -- phase 13: the training half and the iterative loop -----------
+    phase13 = {"fit": timed("13abc", phase_fit),
+               "iterative": timed("13d", phase_iterative)}
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -2614,7 +3014,7 @@ def main() -> int:
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
               "phase9": phase9, "phase10": phase10, "phase11": phase11,
-              "phase12": phase12,
+              "phase12": phase12, "phase13": phase13,
               "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -4,8 +4,10 @@ Each command module exposes ``add_arguments(parser)`` and
 ``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
 directory consensus), the two-phase pair ``get_cliques`` +
 ``run_ilp``, ``report`` / ``trace`` over a run's directory, the
-``serve`` daemon, the CNN picker's ``pick``, and the host utilities
-``convert``, ``score``, ``build_subsets`` and ``get_examples``.
+``serve`` daemon, the CNN picker's ``pick`` and ``fit``, the
+iterative ensemble loop's ``iter_config`` and ``iter_pick``, and the
+host utilities ``convert``, ``score``, ``build_subsets`` and
+``get_examples``.
 """
 
 import argparse
@@ -22,6 +24,9 @@ COMMANDS = {
     "trace": "repic_tpu_torch.commands.trace",
     "serve": "repic_tpu_torch.commands.serve",
     "pick": "repic_tpu_torch.commands.pick",
+    "fit": "repic_tpu_torch.commands.fit",
+    "iter_config": "repic_tpu_torch.commands.iter_config",
+    "iter_pick": "repic_tpu_torch.commands.iter_pick",
     "convert": "repic_tpu_torch.utils.coords",
     "score": "repic_tpu_torch.utils.scoring",
     "build_subsets": "repic_tpu_torch.utils.subsets",

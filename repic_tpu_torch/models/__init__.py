@@ -1,6 +1,6 @@
-"""The CNN picker's inference path: model, checkpoints, preprocessing,
-scoring and peak picking (the port of ``repic_tpu.models``; training
-waits for its own slice)."""
+"""The CNN picker: model, checkpoints, preprocessing, scoring and peak
+picking, training data and the training loop (the port of
+``repic_tpu.models``)."""
 
 from repic_tpu_torch.models.cnn import PickerCNN, PickerFCN, fc_params_as_conv
 

@@ -22,12 +22,19 @@ feature window keeps the reference's (row, col, channel) order, so
 
 ``dtype`` is the compute dtype: parameters stay float32 and each layer
 casts its input, weight and bias to it (``torch.bfloat16`` for
-``pick --bf16``), as flax's ``dtype=`` does; logits come back float32.
+``--bf16``), as flax's ``dtype=`` does; logits come back float32.
 The convolutions are cuDNN's on the card.
+
+Training adds dropout 0.5 on the flattened features
+(:meth:`PickerCNN.forward` with ``train=True``), the L2 penalty on the
+two FC kernels (:func:`fc_l2_penalty`), flax's default initialisation
+(:func:`init_params`) and the way back to the reference's parameter
+tree (:func:`params_to_jax`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,6 +43,10 @@ from torch import nn
 CONV_SPEC = ((9, 8), (5, 16), (3, 32), (2, 64))
 PATCH_SIZE = 64  # model input resolution
 FC_WIDTH = 128
+FC_WEIGHT_DECAY = 5e-4  # L2 on the two FC weight matrices only
+DROPOUT_RATE = 0.5
+# flax's lecun_normal: the std of a standard normal truncated to (-2, 2)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 # 64x64 -> 2x2xC after four VALID conv+pool blocks (every ARCHS entry
 # lands on a 2x2 feature map)
 FEAT_SPATIAL = 2
@@ -89,8 +100,36 @@ def compute_dtype(name: str) -> torch.dtype:
     return table[name]
 
 
+class _GemmWeightGradConv(torch.autograd.Function):
+    """``F.conv2d`` (VALID, stride 1) whose weight gradient is one GEMM
+    over the unfolded input.  cuDNN's deterministic weight-gradient
+    algorithm for the second conv layer is off by 1.4e-4 of the
+    gradient's magnitude, its other algorithms are not repeatable; the
+    GEMM is both exact to float32 sums and repeatable.  The input's
+    gradient and the forward stay cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_x = torch.nn.grad.conv2d_input(x.shape, weight, grad)
+        kh, kw = weight.shape[-2:]
+        windows = x.unfold(2, kh, 1).unfold(3, kw, 1)  # (B, C, H', W', kh, kw)
+        grad_w = torch.einsum("boyx,bcyxij->ocij", grad, windows)
+        return grad_x, grad_w, grad.sum((0, 2, 3))
+
+
 def _conv(x, layer: nn.Conv2d, dtype):
-    return F.conv2d(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if torch.is_grad_enabled() and layer.weight.requires_grad:
+        return _GemmWeightGradConv.apply(x, w, b)
+    return F.conv2d(x, w, b)
 
 
 class Backbone(nn.Module):
@@ -132,10 +171,23 @@ class PickerCNN(nn.Module):
         self.fc1 = nn.Linear(flat, fc_width, device=device)
         self.fc2 = nn.Linear(fc_width, num_class, device=device)
 
-    def forward(self, x):
+    def forward(self, x, *, train: bool = False, dropout_mask=None,
+                generator=None):
+        """Logits of ``x``; ``train=True`` applies dropout 0.5 to the
+        flattened features, ``where(keep, x / 0.5, 0)`` with ``keep``
+        the boolean ``dropout_mask`` (``(B, 4C)``, indexed like the
+        reference's NHWC flatten) or, without one, a mask drawn from
+        ``generator`` on ``x``'s device."""
         x = self.backbone(x.permute(0, 3, 1, 2))
         # (row, col, channel) flatten order, as the reference's NHWC
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        if train:
+            if dropout_mask is None:
+                dropout_mask = torch.rand(
+                    x.shape, generator=generator, device=x.device
+                ) < 1.0 - DROPOUT_RATE
+            x = torch.where(dropout_mask, x / (1.0 - DROPOUT_RATE),
+                            torch.zeros((), dtype=x.dtype, device=x.device))
         dt = self.dtype
         x = F.relu(F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
         x = F.linear(x, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
@@ -202,3 +254,52 @@ def build_model(kind: str, state_dict: dict, *, arch: str = "deep",
                 device="meta")
     model.load_state_dict(state_dict, assign=True)
     return model.eval()
+
+
+def fc_l2_penalty(params: dict) -> torch.Tensor:
+    """L2 weight decay on the FC kernels only: ``5e-4 * (|fc1|^2 / 2 +
+    |fc2|^2 / 2)`` over a state dict (or ``named_parameters``)."""
+    return FC_WEIGHT_DECAY * (
+        0.5 * torch.sum(params["fc1.weight"] ** 2)
+        + 0.5 * torch.sum(params["fc2.weight"] ** 2)
+    )
+
+
+def init_params(arch: str = "deep", generator=None, device=None) -> dict:
+    """A fresh :class:`PickerCNN` state dict with flax's defaults:
+    every kernel ``lecun_normal`` (a normal truncated at two standard
+    deviations, std ``sqrt(1 / fan_in) / 0.8796``, ``fan_in`` the
+    kernel's input size times its window), every bias zero.  Drawn on
+    ``device`` from ``generator`` (which must live there), layer by
+    layer in the module's order."""
+    kw = arch_kwargs(arch)
+    shapes = PickerCNN(**kw, device="meta").state_dict()
+    out = {}
+    for name, meta in shapes.items():
+        t = torch.zeros(meta.shape, dtype=torch.float32, device=device)
+        if name.endswith("weight"):
+            fan_in = meta[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / TRUNCATED_NORMAL_STD
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                        generator=generator)
+        out[name] = t
+    return out
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """The reference's parameter tree (nested dicts of float32 numpy
+    arrays: HWIO conv kernels, ``(in, out)`` dense kernels) of a port
+    state dict -- the inverse of
+    :func:`repic_tpu_torch.models.checkpoint.params_from_jax`."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        *path, leaf = name.split(".")
+        a = t.detach().float().cpu()
+        if leaf == "weight":
+            leaf = "kernel"
+            a = a.permute(2, 3, 1, 0) if a.dim() == 4 else a.t()
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(a.numpy())
+    return tree

@@ -106,7 +106,7 @@ def score_micrograph_patches(
             patches = windows[i0:i0 + row_chunk].reshape(
                 -1, patch_size, patch_size)
             if norm == "reference":
-                x = pp.prepare_patches(patches, PATCH_SIZE)
+                x = pp.prepare_patches(patches, PATCH_SIZE, ordered=False)
             else:
                 x = pp.resize_patches(patches, PATCH_SIZE)
             logits = model(x[..., None])

@@ -66,15 +66,6 @@ def _const(x: torch.Tensor, value) -> torch.Tensor:
     return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
-def _mean(x: torch.Tensor, dim: tuple, keepdim: bool = False):
-    """Sum over ``dim`` divided by the count (``torch.mean`` multiplies
-    by the count's reciprocal)."""
-    n = 1
-    for d in dim:
-        n *= x.shape[d]
-    return x.sum(dim=dim, keepdim=keepdim) / _const(x, n)
-
-
 def _sum_in_order(parts) -> torch.Tensor:
     """Left-to-right float32 sum of equally shaped tensors."""
     it = iter(parts)
@@ -84,27 +75,100 @@ def _sum_in_order(parts) -> torch.Tensor:
     return acc
 
 
+#: XLA's CPU tree-reduction window
+REDUCE_WINDOW = 32
+
+
+def _lanes(h: int, w: int) -> int:
+    """Vector lanes LLVM's loop vectorizer gives the row loop of XLA's
+    CPU reduce of an ``h x w`` block (each side at most 32) to a scalar;
+    0 when the loop stays scalar.  The columns of a row are unrolled, so
+    only blocks of 2-8 columns vectorize, at the widths its cost model
+    picks for an x86-64 target with 256-bit vectors."""
+    if not 2 <= w <= 8:
+        return 0
+    if h in (2, 4, 8):
+        return h
+    if h < 16:
+        return 0
+    if 20 <= h <= 23:
+        return 4
+    if 28 <= h <= 31:
+        return 8 if w == 2 else 4
+    return 8 if w <= 6 else 4
+
+
+def _chain(x: torch.Tensor, rows) -> torch.Tensor:
+    """Left-to-right sum of ``x[..., r, c]`` over ``rows``, each row's
+    columns in order."""
+    return _sum_in_order(x[..., r, c] for r in rows
+                         for c in range(x.shape[-1]))
+
+
+def _block_sum(x: torch.Tensor, vectorized: bool = True) -> torch.Tensor:
+    """Sum of the last two axes (each at most 32) in the order of XLA's
+    CPU loop: one chain in row-major order, or with ``L = _lanes(h, w)``
+    lanes, lane ``l`` chaining rows ``l, l + L, ...`` below the last
+    whole group of ``L`` rows, the lanes folded in halves (lane ``i``
+    plus lane ``i + L/2`` until one is left), then the chain continued
+    over the rows that remain."""
+    h, w = x.shape[-2:]
+    lanes = _lanes(h, w) if vectorized else 0
+    if lanes == 0:
+        return _chain(x, range(h))
+    full = h // lanes * lanes
+    acc = [_chain(x, range(lane, full, lanes)) for lane in range(lanes)]
+    while len(acc) > 1:
+        half = len(acc) // 2
+        acc = [acc[i] + acc[i + half] for i in range(half)]
+    return _sum_in_order([acc[0]] + [x[..., r, c] for r in range(full, h)
+                                     for c in range(w)])
+
+
+def _window_sum(x: torch.Tensor, row_pad=(0, 0), col_pad=(0, 0)):
+    """Sum of each window (the last two axes) of one tree level whose
+    axes were padded by ``row_pad`` / ``col_pad`` (before, after).  A
+    padding of exactly ``(0, 1)`` leaves the bounds check on the
+    window's last column (row) alone, and LLVM peels it: the other
+    columns are summed first, then the peeled column row by row; or, with
+    no column peeled, the other rows, then the peeled row.  The first
+    block vectorizes (:func:`_block_sum`) only where no other padding
+    leaves a check in its loop."""
+    h, w = x.shape[-2:]
+    cols = w - 1 if tuple(col_pad) == (0, 1) else w
+    rows = h - 1 if tuple(row_pad) == (0, 1) and cols == w else h
+    checked = any(p not in ((0, 0), (0, 1)) for p in (row_pad, col_pad))
+    parts = [_block_sum(x[..., :rows, :cols], vectorized=not checked)]
+    if cols < w:
+        parts += [x[..., r, cols] for r in range(rows)]
+    if rows < h:
+        parts += [x[..., rows, c] for c in range(w)]
+    return _sum_in_order(parts)
+
+
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a 2-D float32 tensor in the order XLA's CPU backend sums
-    ``jnp.sum``/``jnp.mean`` over a whole image: while an axis is longer
-    than 32, windows of 32 x 32 (zero padding split evenly, the extra
-    row or column at the end) each summed row by row in order; then the
-    remainder's rows summed in order and the row sums added in order.
-    At a real micrograph's binned size (up to a few thousand pixels a
-    side, two window levels and a 2 x 2 remainder) this is the
-    reference's float32 sum bit for bit, so the z-scored micrograph is
-    too; elsewhere it agrees to float32 rounding."""
+    """Sum over the last two axes of a float32 tensor in the order XLA's
+    CPU backend sums ``jnp.sum``/``jnp.mean`` over them.  While an axis
+    is longer than 32, its windows are 32 long (zero padding split
+    evenly, the odd one at the end) and the other axis's whole length
+    when that is at most 32; each window is summed by
+    :func:`_window_sum`.  Then the remainder, at most 32 x 32, is summed
+    the same way.  This is the reference's float32 sum bit for bit at
+    every shape, as XLA compiles it for an x86-64 host with 256-bit
+    vectors (:func:`_lanes`), so the z-scored micrograph and the
+    standardized patches are too, on the CPU and on the card."""
     x = x.float()
-    while max(x.shape) > 32:
-        h, w = x.shape
-        wh, ww = (32 if h > 32 else 1), (32 if w > 32 else 1)
+    while max(x.shape[-2:]) > REDUCE_WINDOW:
+        h, w = x.shape[-2:]
+        wh = REDUCE_WINDOW if h > REDUCE_WINDOW else h
+        ww = REDUCE_WINDOW if w > REDUCE_WINDOW else w
         ph, pw = -(-h // wh) * wh - h, -(-w // ww) * ww - w
-        x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
-        blk = x.reshape(x.shape[0] // wh, wh, x.shape[1] // ww, ww)
-        x = _sum_in_order(blk[:, i, :, j] for i in range(wh)
-                          for j in range(ww))
-    rows = _sum_in_order(x[:, j] for j in range(x.shape[1]))
-    return _sum_in_order(rows[i] for i in range(x.shape[0]))
+        row_pad, col_pad = (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)
+        x = F.pad(x, (*col_pad, *row_pad))
+        lead = x.shape[:-2]
+        blk = x.reshape(*lead, x.shape[-2] // wh, wh, x.shape[-1] // ww, ww)
+        x = _window_sum(blk.transpose(-3, -2), row_pad, col_pad)
+    return _window_sum(x)
 
 
 def bin2d(img: torch.Tensor, factor: int = BIN_SIZE) -> torch.Tensor:
@@ -117,6 +181,12 @@ def bin2d(img: torch.Tensor, factor: int = BIN_SIZE) -> torch.Tensor:
     total = _sum_in_order(blk[:, i, :, j] for i in range(factor)
                           for j in range(factor))
     return total * _recip(img, factor * factor)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (float32 ``torch.sqrt`` on
+    the CPU is not), through float64: one rounding of the exact root."""
+    return torch.sqrt(x.double()).float()
 
 
 def _recip(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -132,7 +202,7 @@ def preprocess_micrograph(img: torch.Tensor) -> torch.Tensor:
     img = bin2d(gaussian_blur(img.float()))
     mean = tree_sum(img) * _recip(img, img.numel())
     centered = img - mean
-    std = torch.sqrt(tree_sum(centered * centered)
+    std = _sqrt(tree_sum(centered * centered)
                      / _const(img, img.numel()))
     return (img - mean) / std
 
@@ -147,14 +217,28 @@ def bytescale(patches: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp(b, 0, 255) + 0.5)
 
 
-def standardize_patches(patches: torch.Tensor) -> torch.Tensor:
-    """Per-patch z-score with the sample std (ddof=1)."""
+def standardize_patches(patches: torch.Tensor, *,
+                        ordered: bool = True) -> torch.Tensor:
+    """Per-patch z-score with the sample std (ddof=1).
+
+    ``ordered`` computes it as the reference does op by op (its training
+    data): the sums are :func:`tree_sum`, the mean multiplies by the
+    float32 reciprocal of ``n``, the variance and the z-score are IEEE
+    divisions -- the reference's bits.  Its chains cost about a thousand
+    small operations per call, so scoring (where the reference's chain
+    runs compiled, with the variance times ``1/(n-1)``) takes the plain
+    sums instead, within float32 rounding."""
     n = patches.shape[-2] * patches.shape[-1]
-    mean = _mean(patches, (-2, -1), keepdim=True)
-    var = torch.square(patches - mean).sum(
-        dim=(-2, -1), keepdim=True) / _const(patches, max(n - 1, 1))
-    std = torch.sqrt(var)
-    return (patches - mean) / torch.where(std > 0, std, 1.0)
+    if ordered:
+        mean = (tree_sum(patches) * _recip(patches, n))[..., None, None]
+        centered = patches - mean
+        var = tree_sum(centered * centered)[..., None, None]
+    else:
+        mean = patches.sum(dim=(-2, -1), keepdim=True) / _const(patches, n)
+        centered = patches - mean
+        var = torch.square(centered).sum(dim=(-2, -1), keepdim=True)
+    std = _sqrt(var / _const(patches, max(n - 1, 1)))
+    return centered / torch.where(std > 0, std, 1.0)
 
 
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
@@ -216,10 +300,12 @@ def resize_patches(patches: torch.Tensor, out_size: int) -> torch.Tensor:
     return resize_images(patches, out_size, out_size)
 
 
-def prepare_patches(patches: torch.Tensor, out_size: int) -> torch.Tensor:
+def prepare_patches(patches: torch.Tensor, out_size: int, *,
+                    ordered: bool = True) -> torch.Tensor:
     """bytescale -> resize -> round half-to-even and clamp to [0, 255]
-    (a uint8 resize) -> standardize: the full per-patch chain."""
+    (a uint8 resize) -> standardize (``ordered`` as in
+    :func:`standardize_patches`): the full per-patch chain."""
     resized = resize_patches(bytescale(patches), out_size)
     return standardize_patches(
-        torch.clamp(torch.round(resized), 0.0, 255.0)
+        torch.clamp(torch.round(resized), 0.0, 255.0), ordered=ordered
     )

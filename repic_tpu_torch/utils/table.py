@@ -16,6 +16,8 @@ columns with the reference's (pandas') dtype and text rules, so that
 * :meth:`Table.to_csv` is ``DataFrame.to_csv(sep="\\t", index=False)``:
   float64 as ``repr``, NaN as an empty field, fields holding the
   separator, a quote or a line break quoted.
+* :func:`read_tab_table` is ``pd.read_csv(path, sep="\\t")`` (a
+  header line, then rows).
 * :func:`concat` and :func:`group_by` are ``pd.concat(...,
   ignore_index=True)`` and ``groupby(name)`` (keys sorted, NaN keys
   dropped).
@@ -213,6 +215,29 @@ def read_whitespace_table(path, skiprows: int = 0) -> "Table":
         cols[j] = infer_column(
             [r[j] if j < len(r) else None for r in rows])
     return Table(cols)
+
+
+def read_tab_table(path) -> "Table":
+    """``pd.read_csv(path, sep="\\t")``: the first line names the
+    columns, each later non-blank line is one row of tab-separated
+    tokens (short rows padded with missing values), typed per column as
+    :func:`infer_column` types them."""
+    with open(path, "rt", newline="") as f:
+        text = f.read()
+    lines = [ln for ln in text.replace("\r\n", "\n").replace(
+        "\r", "\n").split("\n") if ln.strip()]
+    if not lines:
+        raise EmptyDataError("No columns to parse from file")
+    names = lines[0].split("\t")
+    rows = [ln.split("\t") for ln in lines[1:]]
+    for number, r in enumerate(rows, start=2):
+        if len(r) > len(names):
+            raise ParserError(
+                "Error tokenizing data. C error: Expected "
+                f"{len(names)} fields in line {number}, saw {len(r)}")
+    return Table({
+        name: infer_column([r[j] if j < len(r) else None for r in rows])
+        for j, name in enumerate(names)})
 
 
 def _is_missing(v) -> bool:

@@ -111,9 +111,29 @@ TSV outputs to STAR, TSV and BOX (box size 180) -- and the split
 membership of ``build_subsets`` on ``utils/synthetic.py:
 write_subsets_fixture`` (with and without ``--ignore_test``).
 
+And the training goldens (``--only training``) under
+``tests/golden/torch_port_training/``, on ``tests/test_train.py``'s
+fixture (seed 7: three 800 x 800 training micrographs and one for
+validation, particle size 120):
+
+* ``step.npz`` -- one update of ``repic_tpu.models.train.
+  _make_update_step`` (SGD, momentum 0.9, the staircase decay) from
+  ``PickerCNN().init(PRNGKey(0))`` on the first :data:`STEP_BATCH`
+  training patches under ``PRNGKey(STEP_KEY)``: the parameters before
+  (``params/...``) and after (``updated/...``), the momentum
+  (``trace/...``), the batch, labels, dropout mask, loss and logits,
+  and optax's learning rates at the counts ``lr_counts`` for each
+  ``lr_decay_steps``;
+* ``fit.ckpt`` -- ``repic_tpu.models.train.fit`` (batch 16, 6 epochs,
+  seed 1234, JAX's own init) on the fixture, saved as the JAX ``fit``
+  command saves it;
+* ``picks/`` -- the BOX file the JAX ``pick`` command writes with
+  ``fit.ckpt`` for the held-out micrograph (``make_micrograph`` of
+  seed :data:`HELD_OUT_SEED`).
+
 ``--only flags`` / ``--only runtime`` / ``--only telemetry`` /
-``--only serve`` / ``--only picker`` / ``--only utilities`` rewrite only
-that file (or directory).
+``--only serve`` / ``--only picker`` / ``--only utilities`` /
+``--only training`` rewrite only that file (or directory).
 """
 
 import argparse
@@ -177,6 +197,15 @@ UTILITIES_DIGESTS = os.path.join(REPO, "tests", "golden",
                                  "torch_port_utilities_digests.json")
 #: convert chains: (input format, output format); star/tsv inputs are
 #: the BOX -> star/tsv outputs
+TRAINING_DIR = os.path.join(REPO, "tests", "golden", "torch_port_training")
+#: patches in the golden train step, and its dropout key
+STEP_BATCH = 16
+STEP_KEY = 5
+#: decay steps of the golden learning rates; each at counts 0, ds - 1,
+#: ds and 10 ds
+LR_DECAY_STEPS = (1, 8, 24, 184)
+#: seed of the held-out micrograph the golden fit picks
+HELD_OUT_SEED = 99
 CONVERT_CHAINS = tuple(
     [("box", o) for o in ("star", "tsv", "box")]
     + [(i, o) for i in ("star", "tsv") for o in ("star", "tsv", "box")])
@@ -531,6 +560,98 @@ def make_picker_goldens(tmp: str) -> None:
                 shutil.copy(os.path.join(out, f), dest)
 
 
+def write_training_fixture(root: str) -> dict:
+    """``tests/test_train.py``'s fixture: ``{split: (mrc_dir,
+    box_dir)}``."""
+    import numpy as np
+    from test_train import make_micrograph, write_pair
+
+    rng = np.random.default_rng(7)
+    dirs = {}
+    for split, n in (("train", 3), ("val", 1)):
+        mrc_dir = os.path.join(root, f"{split}_mrc")
+        box_dir = os.path.join(root, f"{split}_box")
+        os.makedirs(mrc_dir)
+        os.makedirs(box_dir)
+        for i in range(n):
+            img, centers = make_micrograph(rng)
+            write_pair((mrc_dir, box_dir), f"{split}{i}", img, centers)
+        dirs[split] = (mrc_dir, box_dir)
+    return dirs
+
+
+def lr_counts(decay_steps: int) -> list:
+    return [0, decay_steps - 1, decay_steps, 10 * decay_steps]
+
+
+def make_training_goldens(tmp: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    from repic_tpu.main import main as jax_cli
+    from repic_tpu.models import data as jdata
+    from repic_tpu.models.checkpoint import save_checkpoint
+    from repic_tpu.models.cnn import PickerCNN
+    from repic_tpu.models.train import TrainConfig, _make_update_step, fit
+    from repic_tpu_torch.utils import mrc
+    from test_train import PARTICLE, make_micrograph
+    from torch_port_common import flat_tree
+    from torch_train_common import jax_dropout_mask
+
+    shutil.rmtree(TRAINING_DIR, ignore_errors=True)
+    os.makedirs(TRAINING_DIR)
+    dirs = write_training_fixture(tmp)
+    train = jdata.load_dataset(*dirs["train"], PARTICLE)
+    val = jdata.load_dataset(*dirs["val"], PARTICLE)
+
+    model = PickerCNN()
+    params = model.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, 64, 64, 1)))["params"]
+    batch = jnp.asarray(train[0][:STEP_BATCH])
+    labels = jnp.asarray(train[1][:STEP_BATCH])
+    key = jax.random.PRNGKey(STEP_KEY)
+    mask = jax_dropout_mask(model, params, batch, key)
+    schedule = optax.exponential_decay(0.01, 8, 0.95, staircase=True)
+    tx = optax.sgd(schedule, momentum=0.9)
+    updated, opt_state, loss, logits = _make_update_step(model, tx)(
+        params, tx.init(params), batch, labels, key)
+    lrs = {}
+    for ds in LR_DECAY_STEPS:
+        sched = optax.exponential_decay(0.01, ds, 0.95, staircase=True)
+        lrs[f"lr/{ds}"] = np.array(
+            [np.asarray(sched(c)) for c in lr_counts(ds)], np.float32)
+    np.savez_compressed(
+        os.path.join(TRAINING_DIR, "step.npz"),
+        batch=np.asarray(batch), labels=np.asarray(labels), mask=mask,
+        loss=np.asarray(loss), logits=np.asarray(logits),
+        lr=np.asarray(schedule(0)),
+        **flat_tree(params, "params/"), **flat_tree(updated, "updated/"),
+        **flat_tree(opt_state[0].trace, "trace/"), **lrs,
+    )
+
+    result = fit(*train, *val, TrainConfig(batch_size=16, max_epochs=6,
+                                           verbose=False))
+    ckpt = os.path.join(TRAINING_DIR, "fit.ckpt")
+    save_checkpoint(ckpt, result.params, {
+        "particle_size": PARTICLE, "patch_norm": "reference",
+        "arch": "deep", "best_val_error": result.best_val_error,
+        "epochs": result.epochs_run, "seed": 1234,
+    })
+    mrc_dir = os.path.join(tmp, "held_out")
+    os.makedirs(mrc_dir)
+    img, _ = make_micrograph(np.random.default_rng(HELD_OUT_SEED))
+    mrc.write_mrc(os.path.join(mrc_dir, "held_out.mrc"), img)
+    out = os.path.join(tmp, "picks")
+    jax_cli(["pick", ckpt, mrc_dir, out])
+    os.makedirs(os.path.join(TRAINING_DIR, "picks"))
+    shutil.copy(os.path.join(out, "held_out.box"),
+                os.path.join(TRAINING_DIR, "picks"))
+    print("training goldens: best val error", result.best_val_error,
+          flush=True)
+
+
 def make_utilities_digests(tmp: str) -> dict:
     from repic_tpu.main import main as jax_cli
     from repic_tpu_torch.utils.synthetic import (
@@ -565,13 +686,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only",
                     choices=["flags", "runtime", "telemetry", "serve",
-                             "picker", "utilities"])
+                             "picker", "utilities", "training"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     os.environ.setdefault("REPIC_TPU_NO_CONFIG_CACHE", "1")
     if args.only in (None, "utilities"):
         with tempfile.TemporaryDirectory() as tmp:
             write_json(UTILITIES_DIGESTS, make_utilities_digests(tmp))
+    if args.only in (None, "training"):
+        with tempfile.TemporaryDirectory() as tmp:
+            make_training_goldens(tmp)
     if args.only in (None, "picker"):
         with tempfile.TemporaryDirectory() as tmp:
             make_picker_goldens(tmp)

@@ -157,9 +157,17 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.utils.matching',"
         " 'repic_tpu_torch.utils.scoring',"
         " 'repic_tpu_torch.utils.subsets',"
-        " 'repic_tpu_torch.commands.get_examples'} <= new\n"
+        " 'repic_tpu_torch.commands.get_examples',"
+        " 'repic_tpu_torch.models.data',"
+        " 'repic_tpu_torch.models.train',"
+        " 'repic_tpu_torch.commands.fit',"
+        " 'repic_tpu_torch.pipeline.pickers',"
+        " 'repic_tpu_torch.pipeline.iterative',"
+        " 'repic_tpu_torch.commands.iter_config',"
+        " 'repic_tpu_torch.commands.iter_pick'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repic_tpu', 'flax', 'pandas', 'msgpack'))\n"
+        "('jax', 'jaxlib', 'repic_tpu', 'flax', 'optax', 'pandas',"
+        " 'msgpack'))\n"
         "print(len(bad), bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -185,7 +193,8 @@ def _imported_modules(path):
 
 #: what no file of the port (nor chip_smoke.py) may import: JAX, the JAX
 #: package, and the libraries the card machine does not have
-FORBIDDEN = ("jax", "jaxlib", "repic_tpu", "flax", "pandas", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "repic_tpu", "flax", "optax", "pandas",
+             "msgpack")
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -213,7 +222,11 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "models/infer.py", "ops/nms.py", "commands/pick.py",
                 "utils/table.py", "utils/coords.py", "utils/matching.py",
                 "utils/scoring.py", "utils/subsets.py",
-                "commands/get_examples.py"):
+                "commands/get_examples.py",
+                # the training half and the iterative loop
+                "models/data.py", "models/train.py", "commands/fit.py",
+                "pipeline/pickers.py", "pipeline/iterative.py",
+                "commands/iter_config.py", "commands/iter_pick.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (

@@ -782,3 +782,114 @@ def test_segmentation_scores_on_card_equal_the_cpus(cuda_device):
             gt, pk, mrc_w=4096, mrc_h=4096, device=cuda_device
         ) == get_segmentation_scores(gt, pk, mrc_w=4096, mrc_h=4096,
                                      device="cpu")
+
+
+# -- the picker's training half ------------------------------------------
+
+TRAINING = os.path.join(REPO, "tests", "golden", "torch_port_training")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,shape", [(0, (400, 430)), (2, (400, 430)),
+                                        (0, (256, 256)), (1, (800, 800)),
+                                        (0, (3710, 3838))])
+def test_zscore_on_card_equals_the_cpus(cuda_device, seed, shape):
+    """The summation-order rule gives the card the CPU's bits (and so
+    the reference's), the micrograph's z-score and the patches'."""
+    from repic_tpu_torch.models import preprocess as pp
+
+    raw = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    assert torch.equal(pp.preprocess_micrograph(t(raw, cuda_device)).cpu(),
+                       pp.preprocess_micrograph(t(raw)))
+    p = np.random.default_rng(seed).normal(size=(64, 40, 40)) * 3
+    p = p.astype(np.float32)
+    assert torch.equal(pp.prepare_patches(t(p, cuda_device), 64).cpu(),
+                       pp.prepare_patches(t(p), 64))
+
+
+@pytest.mark.cuda
+def test_tree_sum_on_card_equals_the_cpus(cuda_device):
+    from repic_tpu_torch.models.preprocess import tree_sum
+
+    rng = np.random.default_rng(0)
+    for shape in [(h, w) for h in (1, 2, 7, 16, 21, 29, 32)
+                  for w in (1, 2, 5, 8, 9, 32)] + [(63, 63), (2559, 4),
+                                                   (45, 223), (1365, 1365)]:
+        x = (rng.standard_normal(shape)
+             * np.exp2(rng.uniform(-12, 12, shape))).astype(np.float32)
+        assert torch.equal(tree_sum(t(x, cuda_device)).cpu(),
+                           tree_sum(t(x))), shape
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_the_jax_golden(cuda_device):
+    """One update from the committed JAX step's parameters, batch and
+    mask, at the CPU test's tolerances; the learning rate bitwise."""
+    from repic_tpu_torch.models.checkpoint import params_from_jax
+    from repic_tpu_torch.models.cnn import PickerCNN
+    from repic_tpu_torch.models.infer import _fp32_flags
+    from repic_tpu_torch.models.train import learning_rate, train_step
+    from torch_port_common import unflat_tree
+
+    g = dict(np.load(os.path.join(TRAINING, "step.npz")))
+    model = PickerCNN(device="meta")
+    model.load_state_dict({k: v.to(cuda_device) for k, v in params_from_jax(
+        unflat_tree(g, "params/")).items()}, assign=True)
+    model.requires_grad_(True)
+    momentum = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    lr = learning_rate(0, 0.01, 8, 0.95)
+    assert lr.tobytes() == g["lr"].tobytes()
+    with _fp32_flags():
+        loss, logits = train_step(
+            model, momentum, t(g["batch"], cuda_device),
+            t(g["labels"].astype(np.int64), cuda_device), lr,
+            dropout_mask=t(g["mask"], cuda_device))
+    assert abs(float(loss) / float(g["loss"]) - 1) < 1e-6
+    np.testing.assert_allclose(n(logits), g["logits"], atol=1e-5)
+    want_p = params_from_jax(unflat_tree(g, "updated/"))
+    want_t = params_from_jax(unflat_tree(g, "trace/"))
+    for k, p in model.named_parameters():
+        np.testing.assert_allclose(n(p), want_p[k].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(
+            n(momentum[k]), want_t[k].numpy(), rtol=0,
+            atol=1e-4 * float(want_t[k].abs().max()), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_fit_on_card_repeats_its_bits(cuda_device, tmp_path):
+    """Two fits of one seed on the card give the same parameters (TF32
+    off, deterministic cuDNN, weight gradients as GEMMs), and learn the
+    planted particles."""
+    from repic_tpu_torch.models.data import load_dataset
+    from repic_tpu_torch.models.train import TrainConfig, fit
+    from repic_tpu_torch.utils import mrc
+    from repic_tpu_torch.utils.box_io import write_box
+    from repic_tpu_torch.utils.synthetic import synthetic_micrograph
+
+    dirs = {}
+    for split, seeds in (("train", (7, 8)), ("val", (9,))):
+        mrc_dir, box_dir = tmp_path / f"{split}_mrc", tmp_path / f"{split}_box"
+        mrc_dir.mkdir()
+        box_dir.mkdir()
+        for seed in seeds:
+            img, centres = synthetic_micrograph(seed, size=1024)
+            mrc.write_mrc(str(mrc_dir / f"m{seed}.mrc"), img)
+            write_box(str(box_dir / f"m{seed}.box"),
+                      centres.astype(np.float64) - 90, np.ones(len(centres)),
+                      180)
+        dirs[split] = (str(mrc_dir), str(box_dir))
+    train = load_dataset(*dirs["train"], 180, device=cuda_device)
+    val = load_dataset(*dirs["val"], 180, seed=1235, device=cuda_device)
+    assert train[0].shape == load_dataset(*dirs["train"], 180,
+                                          device="cpu")[0].shape
+    runs = [fit(*train, *val, TrainConfig(batch_size=32, max_epochs=4,
+                                          verbose=False), device=cuda_device)
+            for _ in range(2)]
+    from torch_port_common import flat_tree
+
+    again = flat_tree(runs[1].params)
+    for k, v in flat_tree(runs[0].params).items():
+        np.testing.assert_array_equal(again[k], v, err_msg=k)
+    assert runs[0].history == runs[1].history
+    assert runs[0].best_val_error <= 10.0

@@ -4,12 +4,14 @@ Inputs are made from numpy seeds and go through ``repic_tpu.models``
 and ``repic_tpu_torch.models``; parameters are a flax init converted
 with ``params_from_jax``.  Tolerances:
 
-* ``bin2d``, blur, the micrograph z-score: rtol = atol = 1e-6; at
-  three real micrograph sizes (4096 x 4096, 3838 x 3710, 5760 x 4092)
-  the z-scored micrograph is bitwise the reference's;
+* ``bin2d``, blur, the micrograph z-score: rtol = atol = 1e-6; the
+  z-scored micrograph is bitwise the reference's at real micrograph
+  sizes and at the small ones where an earlier summation rule was not
+  (``tree_sum`` against ``jnp.sum`` at every remainder up to 32 x 32);
 * ``bytescale`` and the antialiased resize (every patch size, up and
   down): bitwise, so the rounded uint8 levels are equal; the
-  standardized patches within 1e-4 (a 4096-term float32 mean);
+  standardized patches bitwise too (op by op, as the loaders call
+  them);
 * logits of all three architectures, and both scoring modes: 1e-5;
 * local maxima and peaks: exact given the same map, on both NMS paths;
 * ``pick_micrograph``: every pick at a JAX pick's grid position unless
@@ -79,14 +81,17 @@ def test_bin2d_blur_zscore_match_jax():
 @pytest.mark.parametrize("seed,shape", [
     (0, (4096, 4096)), (1, (4096, 4096)), (0, (3838, 3710)),
     (1, (3838, 3710)), (0, (5760, 4092)), (1, (5760, 4092)),
+    (0, (3710, 3838)), (0, (400, 430)), (2, (400, 430)), (0, (256, 256)),
+    (0, (800, 800)), (1, (800, 800)),
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_preprocess_micrograph_bitwise_at_full_size(seed, shape):
-    """At these micrograph sizes the mean and variance sum in the
-    reference's order (``tree_sum``), so the z-scored micrograph is
-    equal bit for bit -- what lets the card's score maps meet 1e-4 (a
-    one-ulp input moves a bytescale level and a score by up to 7e-4).
-    The square ones are the picker's seeded micrographs; the others
-    plain noise."""
+    """The mean and variance sum in the reference's order
+    (``tree_sum``), so the z-scored micrograph is equal bit for bit --
+    what lets the card's score maps meet 1e-4 (a one-ulp input moves a
+    bytescale level and a score by up to 7e-4).  The square 4096 ones
+    are the picker's seeded micrographs; the others plain noise, among
+    them the sizes where an earlier rule summed out of order (the
+    transposed 3710 x 3838, 400 x 430, 256 x 256, 800 x 800)."""
     if shape == (4096, 4096):
         raw, centres = synthetic_micrograph(seed)
         assert 600 <= len(centres) <= 950
@@ -96,6 +101,34 @@ def test_preprocess_micrograph_bitwise_at_full_size(seed, shape):
     want = np.asarray(jpp.preprocess_micrograph(jnp.asarray(raw)))
     got = tpp.preprocess_micrograph(_t(raw)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_tree_sum_bitwise_at_every_remainder():
+    """Every final block XLA's CPU reduce meets, 1 x 1 to 32 x 32 (one
+    program of 1,024 sums), on values spread over 24 binades so that any
+    other order shows; then sizes that take one or two window levels,
+    with the padding peeled (31 mod 32 on either or both axes), unpadded
+    narrow windows that vectorize, and a batch of patches."""
+    rng = np.random.default_rng(0)
+
+    def noise(shape):
+        return (rng.standard_normal(shape)
+                * np.exp2(rng.uniform(-12, 12, shape))).astype(np.float32)
+
+    shapes = [(h, w) for h in range(1, 33) for w in range(1, 33)]
+    shapes += [(33, 33), (95, 3), (2559, 4), (96, 7), (63, 63),
+               (45, 223), (1236, 1279), (1247, 1279), (3, 2047),
+               (40000, 3), (100, 10), (133, 143)]
+    xs = [noise(s) for s in shapes]
+    want = jax.jit(lambda xs: [jnp.sum(x) for x in xs])(xs)
+    bad = [s for s, x, w in zip(shapes, xs, want)
+           if np.asarray(w).tobytes()
+           != tpp.tree_sum(_t(x)).numpy().tobytes()]
+    assert not bad, bad
+    batch = noise((9, 64, 64))
+    np.testing.assert_array_equal(
+        tpp.tree_sum(_t(batch)).numpy(),
+        np.asarray(jnp.sum(jnp.asarray(batch), axis=(1, 2))))
 
 
 def test_bytescale_exact_and_standardize():
@@ -110,6 +143,9 @@ def test_bytescale_exact_and_standardize():
     np.testing.assert_allclose(
         got, np.asarray(jpp.standardize_patches(jnp.asarray(p))),
         rtol=1e-5, atol=1e-5)
+    # as the loaders call it (op by op, not under jit): bit for bit
+    np.testing.assert_array_equal(
+        got, np.asarray(jpp.standardize_patches(jnp.asarray(p))))
     for g in got:   # the sample std (ddof=1)
         assert abs(g.std(ddof=1) - 1) < 1e-4
 
@@ -130,6 +166,9 @@ def test_prepare_patches_levels_match_jax(size):
     np.testing.assert_allclose(
         tpp.prepare_patches(_t(p), 64).numpy(),
         np.asarray(jpp.prepare_patches(jnp.asarray(p), 64)), atol=1e-4)
+    np.testing.assert_array_equal(
+        tpp.prepare_patches(_t(p), 64).numpy(),
+        np.asarray(jpp.prepare_patches(jnp.asarray(p), 64)))
 
 
 def test_resize_weights_match_jax():

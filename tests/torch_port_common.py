@@ -112,3 +112,29 @@ def corrupt_box(data, name, picker="picker0",
     with open(path, "wt") as f:
         f.write(text)
     return path
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays as ``{"a/b/c": numpy array}``."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflat_tree(flat, prefix=""):
+    """The inverse of :func:`flat_tree` for the keys under ``prefix``."""
+    tree = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            continue
+        *path, leaf = k[len(prefix):].split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v)
+    return tree
