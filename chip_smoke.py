@@ -173,7 +173,33 @@ Phases, each fatal on failure:
    ensemble on 12 micrographs (``--semi_auto`` from the planted
    centres, one round, train 100%, ``--score``): seconds per stage from
    ``iter_pick.log``, the final test-split F1 above 0.5, and a rerun
-   that must resume and do nothing.
+   that must resume and do nothing;
+14. the multi-host layer, every process a fresh interpreter on
+   ``cuda:0`` after phase 1 built the kernels: (a) ``synthetic_256``
+   as 3 ``consensus --coordination-dir`` host processes sharing one
+   output and coordination directory (``--solver lp_device_fused``,
+   chunks of :data:`CLUSTER_CHUNK`, the CLI's 2 s heartbeat and 10 s
+   timeout), host 1 dying through ``host_crash`` after its second
+   chunk (exit 23), then 2 hosts with ``lp_device --pallas`` and no
+   fault: both runs' BOX files equal phase 4's, nothing lost or
+   quarantined, the survivors' ``work_reassigned`` and
+   ``reassigned_from`` counts nonzero, ``report``'s cluster section,
+   each host's ``chunk_dispatches`` events against its launches; each
+   host's wall, the crash-to-fence time and the reassigned count; (b)
+   3 ``serve --fleet-dir`` replica processes (heartbeat 0.2 s, timeout
+   1 s, chunks of 1): 10017 fused once undisturbed, then again with the
+   replica running it SIGKILLed after its first chunk lands -- the job
+   finishes on a survivor under its id with the golden artifacts, one
+   completion token, one terminal record and a journaled
+   ``job_reassigned`` --; phase 11b's burst split with ``--pallas``
+   across the two survivors, every BOX file equal to phase 4's; then
+   SIGTERM: every replica exits 0 and no lease is orphaned; the job's
+   wall with and without the kill, the burst's wall and micrographs per
+   second, each replica's launches off ``/status``; (c)
+   ``synthetic_256`` fused in this process with ``use_mesh=True`` over
+   ``consensus_mesh()`` (the card count is printed: one card here, so
+   a split over several cards is not exercised), its bytes equal to
+   phase 4's.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -209,11 +235,12 @@ FLAG_DIGESTS = os.path.join(REPO, "tests", "golden",
                             "torch_port_flags_digests.json")
 RUNTIME_DIGESTS = os.path.join(REPO, "tests", "golden",
                                "torch_port_runtime_digests.json")
-#: warm runs per side of phase 9's prefetch on/off comparison (phase 10
-#: shares the time limit)
-PREFETCH_PAIRS = 5
-#: warm runs per side of phase 10b's telemetry on/off comparison
-TELEMETRY_PAIRS = 10
+#: warm runs per side of phase 9's prefetch on/off comparison (phases 10
+#: and 14 share the time limit)
+PREFETCH_PAIRS = 3
+#: warm runs per side of phase 10b's telemetry on/off comparison (10
+#: before phase 14 shared the time limit)
+TELEMETRY_PAIRS = 6
 TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
                                  "torch_port_telemetry_digests.json")
 SERVE_DIGESTS = os.path.join(REPO, "tests", "golden",
@@ -234,6 +261,14 @@ TRACE_KERNELS = {"lp_device_fused": ("clique_count_kernel",
                                      "clique_write_kernel",
                                      "dual_solve_kernel"),
                  "lp_device_pallas": ("topk_neighbors_kernel",)}
+#: phase 14a's micrographs per chunk (each host's third of the
+#: synthetic set is then 6 chunks)
+CLUSTER_CHUNK = 16
+#: phase 14b's replica heartbeat and timeout (fast, as the reference's
+#: fleet chaos test)
+FLEET_HB, FLEET_TIMEOUT = "0.2", "1.0"
+#: the device of phase 14's child processes: the entry points' default
+CHILD_DEVICE = "cuda"
 #: micrographs in the warm passes of the two dense configurations
 #: (each configuration's full count)
 STRESS_WARM = 128
@@ -1057,6 +1092,7 @@ def _serve_poll(proc, seen, status_docs):
     every path of :data:`STATUS_PATHS` until the process ends; ``seen``
     gets the HTTP codes per path, ``status_docs`` the ``/status``
     documents.  Returns the process's stderr."""
+    import http.client
     import urllib.error
     import urllib.request
 
@@ -1082,8 +1118,10 @@ def _serve_poll(proc, seen, status_docs):
                     code, body = r.status, r.read()
             except urllib.error.HTTPError as e:
                 code, body = e.code, b""
-            except OSError:
-                continue  # the server is gone: the run is ending
+            except (OSError, http.client.HTTPException):
+                # the server is gone, or went mid-response: the run is
+                # ending
+                continue
             seen.setdefault(path, set()).add(code)
             if path == "/status" and code == 200:
                 status_docs.append(json.loads(body))
@@ -2541,6 +2579,491 @@ PASS_REPS = 5
 AB_INPUTS = os.path.join(REPO, "build", "chip_smoke_ab")
 
 
+# -- phase 14: the cluster runtime, the serving fleet, the mesh ---------
+
+
+def _child_env(**extra) -> dict:
+    env = dict(os.environ, PYTHONPATH=REPO, REPIC_TPU_NO_CONFIG_CACHE="1")
+    for var in ("REPIC_TPU_FAULTS", "REPIC_TPU_HOST_ID",
+                "REPIC_TPU_HOST_RANK", "REPIC_TPU_NUM_HOSTS",
+                "REPIC_CONSENSUS_CHUNK", "REPIC_TPU_REPLICA_ID"):
+        env.pop(var, None)
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _need_launches(label, counts, keys):
+    """Fail unless every kernel of ``keys`` launched in ``counts``."""
+    missing = [k for k in keys if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched: {counts}")
+
+
+def _same_boxes(label, out, ref):
+    """Every BOX file of ``ref`` (phase 4's) in ``out``, byte for byte,
+    and no other."""
+    want = sorted(f for f in os.listdir(ref) if f.endswith(".box"))
+    got = sorted(f for f in os.listdir(out) if f.endswith(".box"))
+    if got != want:
+        raise AssertionError(f"{label}: {len(got)} BOX files, phase 4 "
+                             f"wrote {len(want)}")
+    diff = [f for f in want if not filecmp.cmp(
+        os.path.join(out, f), os.path.join(ref, f), shallow=False)]
+    if diff:
+        raise AssertionError(f"{label}: {len(diff)} BOX files differ from "
+                             f"phase 4's: {diff[:5]}")
+    return len(want)
+
+
+def _cluster_run(label, synth, out, hosts, solver, pallas, faults=None):
+    """``hosts`` consensus host processes over ``out`` (also the
+    coordination directory); returns per rank ``(rc, stats or None,
+    wall, output tail)``."""
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    for rank in range(hosts):
+        env = _child_env(REPIC_TPU_HOST_ID=f"h{rank}",
+                         REPIC_TPU_HOST_RANK=rank,
+                         REPIC_TPU_NUM_HOSTS=hosts,
+                         REPIC_CONSENSUS_CHUNK=CLUSTER_CHUNK)
+        if faults and rank in faults:
+            env["REPIC_TPU_FAULTS"] = faults[rank]
+        cmd = [sys.executable, "-m", "repic_tpu_torch", "consensus", synth,
+               out, str(BOX), "--solver", solver, "--coordination-dir", out,
+               "--device", CHILD_DEVICE]
+        if pallas:
+            cmd.append("--pallas")
+        log_path = os.path.join(OUT, f"phase14_{label}_h{rank}.log")
+        fh = open(log_path, "w")
+        procs.append((subprocess.Popen(cmd, stdout=fh, stderr=fh, env=env,
+                                       cwd=REPO), time.time(), fh,
+                      log_path))
+    results = []
+    ends = {}
+    try:
+        deadline = time.time() + 300
+        while len(ends) < len(procs):
+            if time.time() > deadline:
+                raise AssertionError(f"phase 14a {label}: hosts still "
+                                     "running after 300 s")
+            for i, (proc, _t, _fh, _p) in enumerate(procs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.time()
+            time.sleep(0.05)
+        for i, (proc, t0, fh, log_path) in enumerate(procs):
+            fh.close()
+            with open(log_path) as f:
+                text = f.read()
+            stats = None
+            for line in reversed(text.strip().splitlines()):
+                if line.startswith("{"):
+                    stats = json.loads(line)
+                    break
+            results.append((proc.returncode, stats, ends[i] - t0,
+                            text[-3000:]))
+    finally:
+        for proc, _t, fh, _p in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+    return results
+
+
+def _host_dispatches(out):
+    """Per host: its journal's ``chunk_dispatches`` events and their
+    dispatch total."""
+    from repic_tpu_torch.runtime.journal import _read_entries
+
+    per = {}
+    for path in sorted(os.listdir(out)):
+        if path.startswith("_journal.") and path.endswith(".jsonl"):
+            host = path[len("_journal."):-len(".jsonl")]
+            ev = [e for e in _read_entries(os.path.join(out, path))
+                  if e.get("event") == "chunk_dispatches"]
+            per[host] = {"events": len(ev),
+                         "dispatches": sum(e["dispatches"] for e in ev),
+                         "micrographs": sum(e["micrographs"] for e in ev),
+                         "entries": sorted({e["entry"] for e in ev})}
+    return per
+
+
+def phase_cluster(synth, phase4_outs):
+    """Phase 14a: ``synthetic_256`` as 3 cluster hosts with one crash,
+    then 2 hosts with ``--pallas``."""
+    from repic_tpu_torch.runtime.cluster import CRASH_EXIT_CODE
+    from repic_tpu_torch.runtime.journal import (
+        DONE_STATUSES, merged_latest, read_all_journals,
+    )
+    from repic_tpu_torch.telemetry.report import build_report, format_report
+
+    rep = {}
+    launches = {k: 0 for k in ("topk_neighbors", "fused_clique_candidates",
+                               "fused_dual_solve")}
+    runs = (
+        ("cluster3", 3, "lp_device_fused", False,
+         {1: "host_crash:after_chunk:1:1"}, "lp_device_fused"),
+        ("cluster2_pallas", 2, "lp_device", True, None, "lp_device_pallas"),
+    )
+    for label, hosts, solver, pallas, faults, ref in runs:
+        out = os.path.join(WORK, label)
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.time()
+        results = _cluster_run(label, synth, out, hosts, solver, pallas,
+                               faults)
+        wall = time.time() - t0
+        for rank, (rc, stats, hwall, tail) in enumerate(results):
+            want = CRASH_EXIT_CODE if faults and rank in faults else 0
+            if rc != want:
+                raise AssertionError(f"phase 14a {label}: host {rank} "
+                                     f"exited {rc}, expected {want}:\n{tail}")
+            if rc == 0 and not str(stats.get("device", "")).startswith(
+                    CHILD_DEVICE):
+                raise AssertionError(f"phase 14a {label}: host {rank} ran "
+                                     f"on {stats.get('device')}")
+        n = _same_boxes(f"phase 14a {label}", out, phase4_outs[ref])
+        merged = merged_latest(out)
+        lost = [nm for nm, e in merged.items()
+                if e.get("status") not in DONE_STATUSES]
+        if len(merged) != N_SYNTH or lost:
+            raise AssertionError(f"phase 14a {label}: {len(merged)} "
+                                 f"micrographs journaled, not done: "
+                                 f"{lost[:5]}")
+        entries = read_all_journals(out)
+        reassigned_ev = [e for e in entries
+                         if e.get("event") == "work_reassigned"]
+        provenance = [e for e in merged.values() if e.get("reassigned_from")]
+        run_launches = {k: 0 for k in launches}
+        for rc, stats, _w, _t in results:
+            if stats is not None:
+                for k, v in stats["launches"].items():
+                    run_launches[k] += v
+                    launches[k] += v
+        _need_launches(f"phase 14a {label}", run_launches,
+                       LAUNCH_KEYS["lp_device_pallas" if pallas
+                                   else "lp_device_fused"])
+        disp = _host_dispatches(out)
+        for rank, (rc, stats, _w, _t) in enumerate(results):
+            d = disp.get(f"h{rank}")
+            if d is None or d["events"] == 0:
+                raise AssertionError(f"phase 14a {label}: host {rank} "
+                                     "journaled no chunk_dispatches")
+            # one fetch per accepted chunk: the rest are the launches
+            # of every host, the crashed one's too, and at most the
+            # process's own (escalated attempts are not counted)
+            in_events = d["dispatches"] - d["events"]
+            _need_launches(f"phase 14a {label} host {rank}'s "
+                           "chunk_dispatches", {"events": in_events},
+                           ("events",))
+            if stats is not None and in_events > sum(
+                    stats["launches"].values()):
+                raise AssertionError(
+                    f"phase 14a {label}: host {rank}'s chunk_dispatches "
+                    f"{d} against its launches {stats['launches']}")
+        info = {"hosts": hosts, "wall_s": wall,
+                "host_walls_s": [r[2] for r in results],
+                "exit_codes": [r[0] for r in results],
+                "launches": run_launches, "chunk_dispatches": disp,
+                "box_files": n}
+        if faults:
+            if not reassigned_ev or not provenance:
+                raise AssertionError(f"phase 14a {label}: reassigned "
+                                     f"events {len(reassigned_ev)}, "
+                                     f"provenance {len(provenance)}")
+            if any(e.get("status") == "quarantined"
+                   for e in merged.values()):
+                raise AssertionError(f"phase 14a {label}: quarantined")
+            crashed = [e for e in entries if e.get("host") == "h1"
+                       and "name" in e]
+            fenced = [e for e in entries if e.get("event") == "host_fenced"]
+            if not crashed or not fenced:
+                raise AssertionError(f"phase 14a {label}: crashed host "
+                                     f"records {len(crashed)}, fences "
+                                     f"{len(fenced)}")
+            crash_to_fence = fenced[0]["ts"] - max(e["ts"] for e in crashed)
+            report = build_report(out)
+            text = format_report(report)
+            if "cluster" not in report or "cluster hosts:" not in text:
+                raise AssertionError(f"phase 14a {label}: report has no "
+                                     "cluster section")
+            info.update(reassigned=len(provenance),
+                        reassigned_events=len(reassigned_ev),
+                        crash_to_fence_s=crash_to_fence,
+                        report_cluster=report["cluster"])
+            log(f"phase 14a: {label}: host walls "
+                + ", ".join(f"h{i} {r[2]:.2f}s (rc {r[0]})"
+                            for i, r in enumerate(results))
+                + f"; crash to fence {crash_to_fence:.2f}s; reassigned "
+                f"{len(provenance)} micrographs in {len(reassigned_ev)} "
+                f"takeover(s); report's cluster section: suspects "
+                f"{report['cluster']['suspects']}, fences "
+                f"{report['cluster']['fences']}")
+        log(f"phase 14a: {label} ({hosts} hosts, {solver}"
+            f"{' --pallas' if pallas else ''}): {n} BOX files equal phase "
+            f"4's, none lost; wall {wall:.2f}s; launches {run_launches}; "
+            f"chunk_dispatches per host "
+            + ", ".join(f"{h}: {d['events']} chunks, {d['dispatches']} "
+                        "dispatches" for h, d in disp.items()))
+        rep[label] = info
+        shutil.rmtree(out, ignore_errors=True)
+    rep["launches"] = launches
+    return rep
+
+
+def _fleet_replica(fleet, rid, extra_env=None):
+    """``serve --fleet-dir`` as a process on the card (its default
+    device); returns ``(proc, port, log path)`` once ``_serve.json``
+    names it."""
+    wd = os.path.join(WORK, f"fleet_wd_{rid}")
+    os.makedirs(wd, exist_ok=True)
+    env = _child_env(REPIC_CONSENSUS_CHUNK=1, **(extra_env or {}))
+    log_path = os.path.join(OUT, f"phase14_replica_{rid}.log")
+    fh = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repic_tpu_torch", "serve", wd, "--port",
+         "0", "--no-warmup", "--fleet-dir", fleet, "--replica-id", rid,
+         "--heartbeat-interval", FLEET_HB, "--replica-timeout",
+         FLEET_TIMEOUT, "--queue-limit", "64", "--device", CHILD_DEVICE],
+        stdout=fh, stderr=fh, env=env, cwd=REPO)
+    fh.close()
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"phase 14b: replica {rid} exited "
+                                 f"{proc.returncode} at startup:\n"
+                                 + open(log_path).read()[-3000:])
+        try:
+            with open(os.path.join(wd, "_serve.json")) as f:
+                info = json.load(f)
+            if info.get("pid") == proc.pid:
+                return proc, info["port"], log_path
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    proc.kill()
+    raise AssertionError(f"phase 14b: replica {rid} never started")
+
+
+def _fleet_entries(fleet):
+    from repic_tpu_torch.runtime.journal import _read_entries
+
+    out = []
+    for f in sorted(os.listdir(fleet)):
+        if f.startswith("_serve_journal") and f.endswith(".jsonl"):
+            out.extend(_read_entries(os.path.join(fleet, f)))
+    return out
+
+
+def phase_fleet(synth, phase4_outs):
+    """Phase 14b: three fleet replicas, a SIGKILL mid-job, the burst,
+    the drain."""
+    from repic_tpu_torch.serve.fleet import FleetMember
+    from repic_tpu_torch.serve.jobs import TERMINAL_STATES
+    from repic_tpu_torch.utils.synthetic import split_into_jobs
+
+    from torch_serve_common import req, wait_terminal
+
+    rep = {}
+    fleet = os.path.join(WORK, "fleet")
+    shutil.rmtree(fleet, ignore_errors=True)
+    gold_dir = os.path.join(GOLDEN, "lp_device_fused")
+    gold = {f: open(os.path.join(gold_dir, f), "rb").read()
+            for f in os.listdir(gold_dir)}
+    submit = {"in_dir": EXAMPLES, "box_size": BOX,
+              "options": {"use_mesh": False, "solver": "lp_device_fused"}}
+
+    def check_golden(jid, label):
+        jd = os.path.join(fleet, "jobs", jid)
+        got = {f: open(os.path.join(jd, f), "rb").read()
+               for f in os.listdir(jd) if f.endswith(".box")}
+        if got != gold:
+            raise AssertionError(f"phase 14b {label}: artifacts differ "
+                                 "from tests/golden/torch_port_10017")
+
+    procs, ports, logs = {}, {}, {}
+    t0 = time.time()
+    try:
+        for rid in ("r1", "r2", "r3"):
+            procs[rid], ports[rid], logs[rid] = _fleet_replica(fleet, rid)
+        rep["start_s"] = time.time() - t0
+        # the undisturbed job
+        t = time.time()
+        code, _, body = req(ports["r1"], "POST", "/v1/jobs", submit)
+        if code != 202:
+            raise AssertionError(f"phase 14b: submit {code} {body}")
+        doc = wait_terminal(ports["r2"], json.loads(body)["id"],
+                            timeout=300)
+        rep["job_wall_s"] = time.time() - t
+        if doc["state"] != "finished":
+            raise AssertionError(f"phase 14b: {doc}")
+        check_golden(doc["id"], "undisturbed job")
+        # the job with its runner killed after the first chunk lands
+        runner = jid = None
+        for attempt in range(1, 4):
+            alive = [r for r, p in procs.items() if p.poll() is None]
+            t = time.time()
+            code, _, body = req(ports[alive[0]], "POST", "/v1/jobs", submit)
+            if code != 202:
+                raise AssertionError(f"phase 14b: submit {code} {body}")
+            jid = json.loads(body)["id"]
+            job_dir = os.path.join(fleet, "jobs", jid)
+            runner = None
+            deadline = time.time() + 120
+            while time.time() < deadline and runner is None:
+                if os.path.isdir(job_dir) and any(
+                        f.endswith(".box") for f in os.listdir(job_dir)):
+                    for e in reversed(_fleet_entries(fleet)):
+                        if e.get("job") == jid and e.get("state") == \
+                                "running":
+                            runner = e["replica"]
+                            break
+                if runner is None:
+                    time.sleep(0.002)
+            if runner not in procs:
+                raise AssertionError(f"phase 14b: no replica ran {jid}")
+            procs[runner].kill()
+            procs[runner].wait()
+            t_kill = time.time()
+            if not os.path.exists(os.path.join(fleet, f"_done.{jid}.json")):
+                break
+            # the runner finished before the kill landed: replace it
+            if attempt == 3:
+                raise AssertionError("phase 14b: never caught a replica "
+                                     "mid-job")
+            procs.pop(runner)
+            rid = f"r{attempt + 3}"
+            procs[rid], ports[rid], logs[rid] = _fleet_replica(fleet, rid)
+        survivors = [r for r in procs if r != runner]
+        doc = wait_terminal(ports[survivors[0]], jid, timeout=300)
+        rep["killed_job_wall_s"] = time.time() - t
+        rep["kill_to_finish_s"] = time.time() - t_kill
+        rep["kill_attempts"] = attempt
+        if doc["state"] != "finished" or doc["id"] != jid or \
+                doc["replica"] not in survivors:
+            raise AssertionError(f"phase 14b: after the kill {doc}")
+        check_golden(jid, "killed job")
+        entries = _fleet_entries(fleet)
+        terminal = [e for e in entries if e.get("job") == jid
+                    and "event" not in e
+                    and e.get("state") in TERMINAL_STATES]
+        moved = [e for e in entries if e.get("event") == "job_reassigned"
+                 and e.get("job") == jid]
+        tokens = [f for f in os.listdir(fleet) if f == f"_done.{jid}.json"]
+        if len(terminal) != 1 or len(moved) != 1 or len(tokens) != 1:
+            raise AssertionError(f"phase 14b: terminal records "
+                                 f"{len(terminal)}, job_reassigned "
+                                 f"{len(moved)}, tokens {len(tokens)}")
+        log(f"phase 14b: 10017 fused on a 3-replica fleet: {rep['job_wall_s']:.2f}s "
+            f"undisturbed; with replica {runner} SIGKILLed after its first "
+            f"chunk (attempt {attempt}) {rep['killed_job_wall_s']:.2f}s, "
+            f"{rep['kill_to_finish_s']:.2f}s from the kill to the finish on "
+            f"{doc['replica']}; artifacts equal the golden, one completion "
+            "token, one terminal record, job_reassigned journaled")
+        # the burst over the two survivors
+        job_dirs = split_into_jobs(synth, os.path.join(WORK, "fleet_jobs"))
+        ref = phase4_outs["lp_device_pallas"]
+        opts = {"use_mesh": False, "solver": "lp_device",
+                "use_pallas": True}
+        t = time.time()
+        ids = []
+        for i, in_dir in enumerate(job_dirs):
+            code, _, body = req(ports[survivors[i % 2]], "POST", "/v1/jobs",
+                                {"in_dir": in_dir, "box_size": BOX,
+                                 "options": opts})
+            if code != 202:
+                raise AssertionError(f"phase 14b burst: submit {code} "
+                                     f"{body}")
+            ids.append(json.loads(body)["id"])
+        served = []
+        for i, j in enumerate(ids):
+            d = wait_terminal(ports[survivors[(i + 1) % 2]], j, timeout=600)
+            if d["state"] != "finished":
+                raise AssertionError(f"phase 14b burst: {d}")
+            jd = os.path.join(fleet, "jobs", j)
+            for f in os.listdir(jd):
+                if f.endswith(".box"):
+                    served.append(f)
+                    if not filecmp.cmp(os.path.join(jd, f),
+                                       os.path.join(ref, f), shallow=False):
+                        raise AssertionError(f"phase 14b burst: {f} differs "
+                                             "from phase 4's")
+        burst_wall = time.time() - t
+        if sorted(served) != sorted(f for f in os.listdir(ref)
+                                    if f.endswith(".box")):
+            raise AssertionError(f"phase 14b burst: {len(served)} BOX files")
+        rep["burst"] = {"jobs": len(ids), "wall_s": burst_wall,
+                        "micrographs_per_s": N_SYNTH / burst_wall}
+        # each replica's launches, then the drain
+        per = {}
+        for r in survivors:
+            code, _, body = req(ports[r], "GET", "/status")
+            per[r] = json.loads(body)["launches"]
+        rep["replica_launches"] = per
+        rcs = {}
+        for r in survivors:
+            procs[r].send_signal(signal.SIGTERM)
+        for r in survivors:
+            rcs[r] = procs[r].wait(timeout=120)
+        rep["drain_exit_codes"] = rcs
+        if any(rcs.values()):
+            raise AssertionError(f"phase 14b: drain exit codes {rcs}")
+        orphans = FleetMember(fleet, "probe").orphaned_leases()
+        if orphans:
+            raise AssertionError(f"phase 14b: orphaned leases {orphans}")
+        for r in survivors:
+            if f"[device {CHILD_DEVICE}" not in open(logs[r]).read():
+                raise AssertionError(f"phase 14b: replica {r} not on "
+                                     f"{CHILD_DEVICE}")
+        launches = {k: sum(p.get(k, 0) for p in per.values())
+                    for k in ("topk_neighbors", "fused_clique_candidates",
+                              "fused_dual_solve")}
+        _need_launches("phase 14b: the survivors", launches, launches)
+        for r, counts in per.items():
+            _need_launches(f"phase 14b: replica {r}",
+                           {"any": sum(counts.values())}, ("any",))
+        rep["launches"] = launches
+        log(f"phase 14b: burst of {len(ids)} jobs ({N_SYNTH} micrographs, "
+            f"--pallas) over the two survivors: {burst_wall:.2f}s = "
+            f"{N_SYNTH / burst_wall:.1f} micrographs/s, every BOX file "
+            f"equal to phase 4's; SIGTERM: exit codes {rcs}, 0 orphaned "
+            f"leases; survivors' launches {per}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(os.path.join(WORK, "fleet_jobs"), ignore_errors=True)
+    return rep
+
+
+def phase_mesh(synth, phase4_outs):
+    """Phase 14c: the in-process run over ``consensus_mesh()``."""
+    import torch
+
+    from repic_tpu_torch.parallel.mesh import consensus_mesh
+    from repic_tpu_torch.pipeline import consensus
+
+    mesh = consensus_mesh()
+    out = os.path.join(WORK, "mesh")
+    clear_memo()
+    reset_counts()
+    t = time.time()
+    st = consensus.run_consensus_dir(synth, out, BOX,
+                                     solver="lp_device_fused",
+                                     use_mesh=True, device="cuda")
+    wall = time.time() - t
+    counts = read_counts()
+    n = _same_boxes("phase 14c", out, phase4_outs["lp_device_fused"])
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 14c: synthetic_256 fused over consensus_mesh() = "
+        f"{[str(d) for d in mesh]} (torch.cuda.device_count() = "
+        f"{torch.cuda.device_count()}): {n} BOX files equal phase 4's; "
+        f"chunk {st['chunk']}, wall {wall:.2f}s, launches {counts}")
+    return {"mesh": [str(d) for d in mesh],
+            "device_count": torch.cuda.device_count(), "wall_s": wall,
+            "chunk": st["chunk"], "launches": counts}
+
+
 def passes(tree: str) -> int:
     """``--passes TREE``: time the directory runs of the port in ``TREE``
     (a checkout, such as the parent commit unpacked with ``git archive``)
@@ -2977,6 +3500,12 @@ def main() -> int:
     phase13 = {"fit": timed("13abc", phase_fit),
                "iterative": timed("13d", phase_iterative)}
 
+    # -- phase 14: the cluster runtime, the serving fleet, the mesh ---
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    phase14 = {"cluster": timed("14a", phase_cluster, synth, outs),
+               "fleet": timed("14b", phase_fleet, synth, outs),
+               "mesh": timed("14c", phase_mesh, synth, outs)}
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -3009,12 +3538,17 @@ def main() -> int:
         entry["serve_launches"] = {
             setting: r["launches"][entry["name"]]
             for setting, r in phase11["10017"].items()}
+        # launches in phase 14's host and replica processes (their own
+        # counters: the hosts' stats, the survivors' /status)
+        entry["cluster_launches"] = phase14["cluster"]["launches"][
+            entry["name"]]
+        entry["fleet_launches"] = phase14["fleet"]["launches"][entry["name"]]
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
               "phase9": phase9, "phase10": phase10, "phase11": phase11,
-              "phase12": phase12, "phase13": phase13,
+              "phase12": phase12, "phase13": phase13, "phase14": phase14,
               "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

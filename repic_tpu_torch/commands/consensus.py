@@ -1,4 +1,5 @@
-"""Directory consensus on one device.
+"""Directory consensus on this process's cards, or on one host of a
+cluster that shares the output directory (``--coordination-dir``).
 
 Reads ``IN_DIR/<picker>/*.box``, writes one consensus BOX file per
 micrograph into ``OUT_DIR`` (deleted first unless ``--resume``) — or,
@@ -71,8 +72,8 @@ def add_arguments(parser):
         metavar="S",
         help="split each micrograph into S x-stripes with a box-size "
         "halo, enumerate them as one batch and solve globally (same "
-        "output as unstriped); 'auto' stripes only with fewer "
-        "micrographs than devices, which never holds on one card",
+        "output as unstriped); 'auto' stripes over the cards only "
+        "with fewer micrographs than cards and dense fields",
     )
     parser.add_argument(
         "--resume",
@@ -101,8 +102,54 @@ def add_arguments(parser):
     parser.add_argument(
         "--no_mesh",
         action="store_true",
-        help="accepted for compatibility; the port runs on one device",
+        help="run every chunk on one card instead of splitting it over "
+        "all the cards of the process (same output)",
     )
+    parser.add_argument(
+        "--coordination-dir",
+        metavar="DIR",
+        help="enable cluster mode: coordinate N hosts sharing this "
+        "directory (heartbeats, micrograph leases, fences) and the "
+        "same out_dir.  Each host processes a deterministic shard, "
+        "journals to its own _journal.<host>.jsonl, and takes over "
+        "work orphaned by hosts whose heartbeat exceeds "
+        "--host-timeout.  Host identity comes from REPIC_TPU_HOST_ID/"
+        "REPIC_TPU_HOST_RANK/REPIC_TPU_NUM_HOSTS or a torch.distributed "
+        "launch (RANK/WORLD_SIZE).  Implies --resume semantics "
+        "(out_dir is shared and never deleted).  Pass the out_dir "
+        "itself to keep coordination files next to the journals",
+    )
+    parser.add_argument(
+        "--heartbeat-interval",
+        type=float,
+        default=None,
+        metavar="S",
+        help="cluster heartbeat renewal period in seconds "
+        "(default 2.0; requires --coordination-dir)",
+    )
+    parser.add_argument(
+        "--host-timeout",
+        type=float,
+        default=None,
+        metavar="S",
+        help="seconds without a heartbeat before a host is marked "
+        "suspect, fenced, and its unfinished micrographs reassigned "
+        "(default 10.0; requires --coordination-dir).  --strict "
+        "fails fast on the first suspect host instead",
+    )
+    # the collective gang's flags parse, and are refused in main: the
+    # gang is not ported (ROADMAP Queue 1 item 8b)
+    parser.add_argument("--gang", action="store_true",
+                        help="not ported (ROADMAP Queue 1 item 8b)")
+    for flag, typ in (("--gang-min-world", int),
+                      ("--gang-watchdog-factor", float),
+                      ("--gang-watchdog-floor", float),
+                      ("--gang-first-deadline", float),
+                      ("--gang-reform-timeout", float)):
+        parser.add_argument(flag, type=typ, default=None,
+                            help="not ported (requires --gang)")
+    parser.add_argument("--gang-no-degrade", action="store_true",
+                        help="not ported (requires --gang)")
     parser.add_argument(
         "--pallas",
         action="store_true",
@@ -156,8 +203,11 @@ def main(args):
     import sys
 
     from repic_tpu_torch.commands._observability import observability_scope
-    from repic_tpu_torch.ops import iou_pallas, megakernel
-    from repic_tpu_torch.pipeline.consensus import run_consensus_dir
+    from repic_tpu_torch.ops import megakernel
+    from repic_tpu_torch.pipeline.consensus import (
+        launch_counts,
+        run_consensus_dir,
+    )
     from repic_tpu_torch.runtime.ladder import RetryPolicy
     from repic_tpu_torch.telemetry.server import maybe_status_server
 
@@ -165,6 +215,44 @@ def main(args):
         raise SystemExit(
             "consensus: error: --solver_budget requires --solver exact "
             "(the device greedy/lp packers take no budget)"
+        )
+
+    gang_flags = (args.gang_min_world, args.gang_watchdog_factor,
+                  args.gang_watchdog_floor, args.gang_first_deadline,
+                  args.gang_reform_timeout, args.gang_no_degrade or None)
+    if args.gang:
+        raise SystemExit(
+            "repic-tpu consensus: error: --gang (gang-scheduled "
+            "collective execution) is not ported yet; ROADMAP Queue 1 "
+            "item 8b.  Use --coordination-dir for multi-host runs"
+        )
+    if any(v is not None for v in gang_flags):
+        raise SystemExit(
+            "repic-tpu consensus: error: --gang-min-world/"
+            "--gang-watchdog-factor/--gang-watchdog-floor/"
+            "--gang-first-deadline/--gang-reform-timeout/"
+            "--gang-no-degrade require --gang (gang-scheduled "
+            "SPMD execution)"
+        )
+    cluster = None
+    if args.coordination_dir:
+        from repic_tpu_torch.runtime.cluster import ClusterConfig
+
+        kwargs = {}
+        if args.heartbeat_interval is not None:
+            kwargs["heartbeat_interval_s"] = args.heartbeat_interval
+        if args.host_timeout is not None:
+            kwargs["host_timeout_s"] = args.host_timeout
+        cluster = ClusterConfig(
+            coordination_dir=args.coordination_dir, **kwargs
+        )
+    elif (
+        args.heartbeat_interval is not None
+        or args.host_timeout is not None
+    ):
+        raise SystemExit(
+            "repic-tpu consensus: error: --heartbeat-interval/"
+            "--host-timeout require --coordination-dir (cluster mode)"
         )
 
     with maybe_status_server(args.status_port) as srv:
@@ -192,11 +280,10 @@ def main(args):
                               if args.retries is not None else None),
                 solver_budget_s=args.solver_budget,
                 device=args.device,
+                use_mesh=not args.no_mesh,
+                cluster=cluster,
             )
-    stats["launches"] = {
-        "topk_neighbors": iou_pallas.LAUNCHES,
-        **megakernel.LAUNCHES,
-    }
+    stats["launches"] = launch_counts()
     stats["demotions"] = megakernel.DEMOTIONS
     stats["fallbacks"] = dict(megakernel.FALLBACKS)
     print(json.dumps(stats, default=str))

@@ -3,9 +3,10 @@
 A daemon takes consensus jobs over HTTP and runs them on its device
 through the engine, with admission control, per-request deadlines, a
 circuit breaker, graceful drain and a crash-safe request journal (the
-reference's ``repic-tpu serve`` contract, docs/serving.md).  The fleet
-flags (``--fleet-dir``, ``--replica-id``, ``--heartbeat-interval``,
-``--replica-timeout``) are not ported.
+reference's ``repic-tpu serve`` contract).  With ``--fleet-dir`` it
+is one replica of a serving fleet over a shared durable queue
+(:mod:`repic_tpu_torch.serve.fleet`; ``--replica-id``,
+``--heartbeat-interval``, ``--replica-timeout``).
 """
 
 name = "serve"
@@ -105,7 +106,8 @@ def add_arguments(parser):
         help="program-signature sidecar (programs.json), replayed at "
         "startup so a restarted daemon serves its first request on a "
         "previously served bucket as a program-cache hit.  Default "
-        "'auto': <work_dir>/_compile_cache; $REPIC_TPU_COMPILE_CACHE "
+        "'auto': <fleet_dir>/_compile_cache in fleet mode, else "
+        "<work_dir>/_compile_cache; $REPIC_TPU_COMPILE_CACHE "
         "overrides; 'off' disables.  The kernel libraries persist in "
         "build/repic_tpu_torch/ regardless",
     )
@@ -135,6 +137,46 @@ def add_arguments(parser):
         "'anonymous' (no keys) admits keyless requests under its "
         "limits.  Without this flag the daemon stays open exactly "
         "as before (docs/serving.md \"Multi-tenancy\")",
+    )
+    parser.add_argument(
+        "--fleet-dir",
+        default=None,
+        metavar="DIR",
+        help="join (or found) a serving FLEET: a shared directory "
+        "holding the durable job queue (per-replica request "
+        "journals merged on read), per-job leases, completion "
+        "tokens, replica heartbeats/fences, and the shared jobs/ "
+        "output tree.  Start N replicas with the same --fleet-dir "
+        "(distinct work_dirs) and any of them accepts, runs, or "
+        "answers for any job; a replica that dies mid-job is "
+        "fenced and its job finishes on a survivor with resume "
+        "semantics",
+    )
+    parser.add_argument(
+        "--replica-id",
+        default=None,
+        metavar="ID",
+        help="stable fleet identity for this replica (default: "
+        "$REPIC_TPU_REPLICA_ID, else a pid-derived id).  Restarting "
+        "under the SAME id reclaims the replica's journaled jobs "
+        "and clears its stale fence",
+    )
+    parser.add_argument(
+        "--heartbeat-interval",
+        type=float,
+        default=2.0,
+        metavar="S",
+        help="fleet heartbeat renewal period (default 2.0; fleet "
+        "mode only)",
+    )
+    parser.add_argument(
+        "--replica-timeout",
+        type=float,
+        default=10.0,
+        metavar="S",
+        help="heartbeat age past which peers may fence this replica "
+        "and steal its job leases (default 10.0; must exceed the "
+        "heartbeat interval)",
     )
     parser.add_argument(
         "--reassign-budget",
@@ -195,6 +237,10 @@ def main(args):
             breaker_cooldown_s=args.breaker_cooldown,
             warmup=not args.no_warmup,
             slo_targets=slo_targets,
+            fleet_dir=args.fleet_dir,
+            replica_id=args.replica_id,
+            heartbeat_interval_s=args.heartbeat_interval,
+            replica_timeout_s=args.replica_timeout,
             scheduler=args.scheduler,
             max_open=args.max_open,
             compile_cache=args.compile_cache,
@@ -211,10 +257,17 @@ def main(args):
         raise SystemExit(
             f"repic-tpu-torch serve: cannot bind port {args.port}: {e}"
         ) from e
+    fleet_note = (
+        f" [fleet {daemon.fleet.fleet_dir} "
+        f"replica {daemon.fleet.replica}]"
+        if daemon.fleet is not None
+        else ""
+    )
     print(
         f"serve: http://127.0.0.1:{daemon.server.port} "
         "(POST /v1/jobs; /metrics /status /healthz/ready) "
-        f"[work_dir {daemon.work_dir}] [device {daemon.device}]",
+        f"[work_dir {daemon.work_dir}] [device {daemon.device}]"
+        f"{fleet_note}",
         file=sys.stderr,
     )
     daemon.install_signal_handlers()

@@ -4,7 +4,8 @@ Each command module exposes ``add_arguments(parser)`` and
 ``main(args)``, as in ``repic_tpu``: ``consensus`` (the one-pass
 directory consensus), the two-phase pair ``get_cliques`` +
 ``run_ilp``, ``report`` / ``trace`` over a run's directory, the
-``serve`` daemon, the CNN picker's ``pick`` and ``fit``, the
+``serve`` daemon and its ``fleet supervise`` autoscaler, the CNN
+picker's ``pick`` and ``fit``, the
 iterative ensemble loop's ``iter_config`` and ``iter_pick``, and the
 host utilities ``convert``, ``score``, ``build_subsets`` and
 ``get_examples``.
@@ -23,6 +24,7 @@ COMMANDS = {
     "report": "repic_tpu_torch.commands.report",
     "trace": "repic_tpu_torch.commands.trace",
     "serve": "repic_tpu_torch.commands.serve",
+    "fleet": "repic_tpu_torch.commands.fleet",
     "pick": "repic_tpu_torch.commands.pick",
     "fit": "repic_tpu_torch.commands.fit",
     "iter_config": "repic_tpu_torch.commands.iter_config",

@@ -231,7 +231,8 @@ def _finish_patches(all_pos, all_neg, patch_norm, *, device=None):
     if patch_norm == "reference":
         prepared = pp.prepare_patches(raw_patches, PATCH_SIZE)
     else:
-        prepared = pp.resize_patches(raw_patches, PATCH_SIZE)
+        # float patches: XLA's summation order, bit for bit
+        prepared = pp.resize_patches(raw_patches, PATCH_SIZE, ordered=True)
     data = prepared.cpu().numpy()[..., None]
     labels = np.concatenate(
         [np.ones(len(pos), np.int32), np.zeros(len(neg), np.int32)]

@@ -15,7 +15,10 @@ antialias=True)``, which gives JAX's floats on integer-valued patches.
 Downsampling builds ``jax.image.scale_and_translate``'s per-axis
 triangle-kernel weight matrices (kernel scale ``min(1, out/in)``, each
 output's weights renormalised) and applies them as two contractions,
-since ``F.interpolate``'s antialiased filter differs there.
+since ``F.interpolate``'s antialiased filter differs there.  Float
+patches (``patch_norm="global"``) upsample with XLA's CPU summation
+order (``ordered=True``): one fused multiply-add per input index in
+ascending order, rows first, bit for bit JAX's.
 """
 
 from __future__ import annotations
@@ -275,14 +278,51 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0)).astype(f32)
 
 
-def resize_images(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def _contract_in_order(x: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
+    """``x @ weights`` over the last axis of ``x``, summed as XLA's CPU
+    dot does: for each output, one fused multiply-add per input index
+    in ascending order (a float64 multiply-add rounded to float32 at
+    every step stands in for the fused one).  Only the nonzero weights
+    are visited: a zero weight leaves the sum as it is."""
+    n_out = weights.shape[1]
+    nz = weights != 0
+    taps = max(int(nz.sum(axis=0).max()), 1)
+    idx = np.zeros((taps, n_out), np.int64)
+    wt = np.zeros((taps, n_out), np.float64)
+    for j in range(n_out):
+        ks = np.nonzero(nz[:, j])[0]
+        idx[: len(ks), j] = ks
+        wt[: len(ks), j] = weights[ks, j]
+    idx_t = torch.from_numpy(idx).to(x.device)
+    wt_t = torch.from_numpy(wt).to(x.device)
+    xd = x.to(torch.float64)
+    acc = torch.zeros(x.shape[:-1] + (n_out,), dtype=torch.float32,
+                      device=x.device)
+    for t in range(taps):
+        acc = (acc.to(torch.float64) + xd[..., idx_t[t]] * wt_t[t]).to(
+            torch.float32)
+    return acc
+
+
+def resize_images(x: torch.Tensor, out_h: int, out_w: int, *,
+                  ordered: bool = False) -> torch.Tensor:
     """Antialiased bilinear resize of the last two axes of ``x`` (any
     leading batch shape): ``jax.image.resize(..., "linear",
-    antialias=True)``.  Downsampling contracts the rows first, then the
-    columns, as JAX does."""
+    antialias=True)``, rows first, then columns, as JAX does.
+    Upsampling is ``F.interpolate``, JAX's floats on integer-valued
+    inputs (the uint8 chain); with ``ordered`` (float inputs: the
+    ``patch_norm="global"`` loaders) it sums in XLA's CPU order instead
+    (:func:`_contract_in_order`), bit for bit on any input.
+    Downsampling contracts with two ``einsum``s, which give XLA's bits
+    on the CPU."""
     h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
+    if ordered and (out_h >= h or out_w >= w):
+        y = _contract_in_order(x.float().transpose(-1, -2),
+                               resize_weights(h, out_h))
+        return _contract_in_order(y.transpose(-1, -2),
+                                  resize_weights(w, out_w))
     if out_h >= h and out_w >= w:
         lead = x.shape[:-2]
         y = F.interpolate(x.reshape(-1, 1, h, w).float(), (out_h, out_w),
@@ -295,9 +335,11 @@ def resize_images(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return torch.einsum("...Hw,wW->...HW", y, ww)
 
 
-def resize_patches(patches: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Antialiased bilinear resize of ``(B, h, w)`` to ``(B, s, s)``."""
-    return resize_images(patches, out_size, out_size)
+def resize_patches(patches: torch.Tensor, out_size: int, *,
+                   ordered: bool = False) -> torch.Tensor:
+    """Antialiased bilinear resize of ``(B, h, w)`` to ``(B, s, s)``
+    (``ordered`` as in :func:`resize_images`)."""
+    return resize_images(patches, out_size, out_size, ordered=ordered)
 
 
 def prepare_patches(patches: torch.Tensor, out_size: int, *,

@@ -45,7 +45,17 @@ run as the reference does: ``_events.jsonl`` with the ``load``,
 counters in ``_metrics.json`` / ``_metrics.prom``, a synthetic root
 trace with the ``load`` / ``compile`` / ``execute`` / ``emit``
 segments in ``_trace.jsonl``, and the ``/status`` progress of the
-status server.  The cluster and gang layers are not ported yet.
+status server.  Every accepted chunk journals a ``chunk_dispatches``
+event: its kernel launches plus device-to-host fetches.
+
+A chunk runs over a mesh of devices (:mod:`repic_tpu_torch.parallel.mesh`):
+one contiguous slice of its micrographs per device, the results
+concatenated in micrograph order, chunks padded to a multiple of the
+mesh.  Cluster mode (``cluster=ClusterConfig(...)``) runs one process
+per host over a shared output directory
+(:mod:`repic_tpu_torch.runtime.cluster`): heartbeats, a leased shard of
+the micrographs, per-host journals and telemetry, and the takeover of
+a lost host's work.  The collective gang is not ported.
 """
 
 from __future__ import annotations
@@ -88,9 +98,15 @@ from repic_tpu_torch.parallel.batching import (
     pad_batch,
     to_device,
 )
+from repic_tpu_torch.parallel.mesh import shard_over_micrographs
 from repic_tpu_torch.runtime import faults
 from repic_tpu_torch.runtime.atomic import atomic_write, file_lock
-from repic_tpu_torch.runtime.journal import RunJournal, error_info
+from repic_tpu_torch.runtime.journal import (
+    DONE_STATUSES,
+    STATUS_QUARANTINED,
+    RunJournal,
+    error_info,
+)
 from repic_tpu_torch.runtime.ladder import (
     DEFAULT_POLICY,
     ChunkOutcomes,
@@ -144,6 +160,35 @@ _PROGRAM_MISSES = telemetry.counter(
 )
 #: the (configuration, input shape) signatures this process has run
 _PROGRAM_SIGNATURES: set = set()
+
+#: the last accepted chunk's dispatch count, per thread: the prefetch
+#: worker runs the whole chunk generator on one thread, so the batch
+#: that sets it and the loop that journals it share the slot
+_DISPATCH_REPORT = threading.local()
+
+
+def consume_dispatch_report() -> dict | None:
+    """Pop the calling thread's last accepted chunk's dispatch report
+    (``entry``, ``dispatches``, ``micrographs``, ``solver``) set by
+    :func:`run_consensus_batch`, or None."""
+    report = getattr(_DISPATCH_REPORT, "report", None)
+    _DISPATCH_REPORT.report = None
+    return report
+
+
+def launch_counts() -> dict:
+    """This process's launches of each of the three kernels so far,
+    from the wrappers' ``LAUNCHES`` counters (a CPU tensor launches
+    nothing)."""
+    from repic_tpu_torch.ops import iou_pallas, megakernel
+
+    return {"topk_neighbors": int(iou_pallas.LAUNCHES),
+            **{k: int(v) for k, v in megakernel.LAUNCHES.items()}}
+
+
+def _dispatch_marks() -> tuple[int, int]:
+    """(kernel launches, device-to-host fetches) so far."""
+    return sum(launch_counts().values()), tlm_probes.counters()[2]
 
 
 def program_signature(threshold, d, cap, grid, cell_cap, solver,
@@ -331,6 +376,60 @@ def consensus_one(
         max_cell_count=cs.max_cell_count,
         max_partial=cs.max_partial,
     )
+
+
+def consensus_over_mesh(xy, conf, mask, box_size, mesh=None, **config):
+    """:func:`consensus_one` over a mesh: each device of ``mesh`` runs
+    its contiguous slice of the batch's micrographs
+    (:func:`~repic_tpu_torch.parallel.mesh.shard_over_micrographs`), and
+    the slices' results are concatenated on ``mesh[0]`` in micrograph
+    order.  Every micrograph is its own problem and every capacity is
+    the batch's, so the result equals the one-device run's.  No mesh,
+    or a mesh of one device, runs :func:`consensus_one` as is."""
+    if mesh is None or len(mesh) <= 1:
+        return consensus_one(xy, conf, mask, box_size, **config)
+    slices = shard_over_micrographs(mesh, xy, conf, mask)
+    parts = []
+    for dev, x, c, m in zip(mesh, *slices):
+        if x.shape[0] == 0:
+            continue
+        size = (box_size.to(dev) if isinstance(box_size, torch.Tensor)
+                else box_size)
+        parts.append(consensus_one(x, c, m, size, **config))
+    home = torch.device(mesh[0])
+    return ConsensusResult(*(
+        torch.cat([getattr(p, f).to(home) for p in parts])
+        for f in ConsensusResult._fields
+    ))
+
+
+def make_batched_consensus(
+    *,
+    threshold: float = DEFAULT_THRESHOLD,
+    max_neighbors: int = 16,
+    clique_capacity: int = 4096,
+    mesh=None,
+    spatial_grid: int | None = None,
+    cell_capacity: int = 64,
+    solver: str = "lp_device",
+    use_pallas: bool = False,
+    partial_capacity: int | None = None,
+):
+    """``fn(xy, conf, mask, box_size) -> ConsensusResult`` for a static
+    configuration, split over ``mesh`` (the reference returns a jitted
+    program; nothing is traced or compiled here, so this only binds the
+    configuration to :func:`consensus_over_mesh`)."""
+    config = dict(
+        threshold=threshold, max_neighbors=max_neighbors,
+        clique_capacity=clique_capacity, spatial_grid=spatial_grid,
+        cell_capacity=cell_capacity, solver=solver, use_pallas=use_pallas,
+        partial_capacity=partial_capacity,
+    )
+
+    def fn(xy, conf, mask, box_size):
+        return consensus_over_mesh(xy, conf, mask, box_size, mesh, **config)
+
+    return fn
 
 
 def _sizes(xy, box_size) -> torch.Tensor:
@@ -610,6 +709,7 @@ def run_consensus_batch(
     use_pallas: bool = False,
     device=None,
     full: bool = False,
+    mesh=None,
 ) -> tuple[ConsensusResult, np.ndarray]:
     """Run consensus on one host batch with automatic escalation.
 
@@ -620,9 +720,16 @@ def run_consensus_batch(
     fetched packed array — probes + everything the BOX writer needs,
     or with ``full`` the whole result (:func:`_pack_full_result`).
     A capacity that overflows re-runs the batch at the observed
-    requirement.
+    requirement.  ``mesh`` (a tuple of devices, the first of them
+    ``device``) splits the chunk program over its devices
+    (:func:`consensus_over_mesh`).  The accepted attempt's kernel
+    launches and fetches are left for :func:`consume_dispatch_report`.
     """
     dev = resolve_device(device)
+    if mesh is not None and len(mesh) > 1:
+        dev = torch.device(mesh[0])
+    else:
+        mesh = None
     cap = clique_capacity or max(4 * batch.capacity, 1024)
     pcap = cap
     d = max_neighbors
@@ -668,6 +775,9 @@ def run_consensus_batch(
     pack = _pack_full_result if full else _pack_box_outputs
     n_real = sum(1 for n in batch.names if n)
     while True:
+        # the dispatch window of this attempt: a rejected (escalated)
+        # attempt and the first-visit probes above are not counted
+        launch_mark, fetch_mark = _dispatch_marks()
         sig = program_signature(threshold, d, cap, grid, cell_cap, solver,
                                 use_pallas, pcap, batch.xy.shape)
         if sig in _PROGRAM_SIGNATURES:
@@ -683,8 +793,8 @@ def run_consensus_batch(
         with tlm_events.span("consensus_dispatch",
                              micrographs=int(batch.xy.shape[0]),
                              capacity=batch.capacity):
-            res = consensus_one(
-                dbatch.xy, dbatch.conf, dbatch.mask, box_arg,
+            res = consensus_over_mesh(
+                dbatch.xy, dbatch.conf, dbatch.mask, box_arg, mesh,
                 threshold=threshold,
                 max_neighbors=d,
                 clique_capacity=cap,
@@ -712,6 +822,7 @@ def run_consensus_batch(
             continue
         if solver in ("lp_device", "lp_device_fused"):
             note_program_solves(n_real)
+        entry = "repic_tpu_torch.pipeline.consensus.consensus_one"
         if solver == "lp_device_fused":
             from repic_tpu_torch.ops import megakernel
 
@@ -720,6 +831,15 @@ def run_consensus_batch(
                 megakernel.note_demotion()
             else:
                 megakernel.note_fused_chunk(n_real)
+                entry = "repic_tpu_torch.ops.megakernel.fused_clique_candidates"
+        launch_now, fetch_now = _dispatch_marks()
+        _DISPATCH_REPORT.report = {
+            "entry": entry,
+            "dispatches": (launch_now - launch_mark)
+            + (fetch_now - fetch_mark),
+            "micrographs": n_real,
+            "solver": solver,
+        }
         # this batch's exact requirement; a probe that means nothing on
         # this path (no grid, no staged join) keeps the running value
         max_adj, n_cliques, max_cell, max_part = (int(v) for v in probes)
@@ -780,16 +900,22 @@ def emit_box_chunk(
 CHUNK_BYTES = 4e9
 
 
-def _auto_chunk(n_loaded: int, k: int, nb: int) -> int:
+def _auto_chunk(n_loaded: int, k: int, nb: int, n_dev: int = 1) -> int:
     """Micrograph-chunk size: ``REPIC_CONSENSUS_CHUNK`` when set, else
     ``REPIC_CONSENSUS_CHUNK_BYTES`` (default :data:`CHUNK_BYTES`)
     against ~3 live K x K x N x N float32 IoU stages per micrograph,
-    rounded down to a power of two; clamped to the workload.  The
-    clique product is data-dependent and not estimated: OOM halving in
-    the chunk loop is its backstop."""
+    rounded down to a power of two.  Always a multiple of the mesh's
+    ``n_dev`` devices, and clamped to the workload rounded up to one.
+    The clique product is data-dependent and not estimated: OOM
+    halving in the chunk loop is its backstop."""
+
+    def _axis_multiple(c: int) -> int:
+        return max(-(-c // n_dev) * n_dev, n_dev)
+
+    cap = _axis_multiple(n_loaded)
     explicit = os.environ.get("REPIC_CONSENSUS_CHUNK")
     if explicit:
-        return min(max(int(explicit), 1), max(n_loaded, 1))
+        return min(_axis_multiple(max(int(explicit), 1)), cap)
     budget = float(os.environ.get("REPIC_CONSENSUS_CHUNK_BYTES",
                                   CHUNK_BYTES))
     per_micrograph = 3.0 * k * k * nb * nb * 4
@@ -797,7 +923,7 @@ def _auto_chunk(n_loaded: int, k: int, nb: int) -> int:
     c = 1
     while c * 2 <= chunk:
         c *= 2
-    return min(c, max(n_loaded, 1))
+    return min(_axis_multiple(c), cap)
 
 
 class ConsensusCancelled(RuntimeError):
@@ -815,6 +941,7 @@ def _iter_chunks_serial(
     solver: str = "lp_device",
     use_pallas: bool = False,
     device=None,
+    mesh=None,
     extra_device_outputs=None,
     fetch: bool = False,
     finish=None,
@@ -829,9 +956,9 @@ def _iter_chunks_serial(
     ``loaded`` (``(name, sets)`` pairs, all with the same pickers),
     serially; :func:`iter_consensus_chunks` runs it one chunk ahead.
 
-    One chunk covering the whole workload pads to one micrograph's
-    multiple; otherwise every chunk pads to the chunk size (one shape,
-    one escalation memo entry).  Failures walk the runtime ladder
+    One chunk covering the whole workload pads to a multiple of the
+    mesh; otherwise every chunk pads to the chunk size, itself a
+    multiple of the mesh (one shape, one escalation memo entry).  Failures walk the runtime ladder
     (:mod:`repic_tpu_torch.runtime.ladder`): a chunk that runs out of
     memory is halved and retried; in lenient mode (``strict=False``)
     other errors get bounded-backoff retries, then each micrograph of
@@ -843,6 +970,9 @@ def _iter_chunks_serial(
     Args:
         device: where the chunks run (resolved as by
             :func:`resolve_device`).
+        mesh: a tuple of devices, the first ``device``, over which each
+            chunk is split (:func:`consensus_over_mesh`); None is
+            ``device`` alone.
         fetch: yield the whole result fetched to the host
             (:func:`_unpack_full_result`); otherwise the device result,
             with the fetched BOX-writing array
@@ -861,6 +991,9 @@ def _iter_chunks_serial(
         info: receives the chunk size (updated when it halves) and the
             particle capacity.
 
+    An accepted chunk (not the single-micrograph fallback) journals a
+    ``chunk_dispatches`` event.
+
     Yields:
         ``(part, batch, result, extras, seconds)`` per chunk: the
         chunk's pairs, its padded host batch (rows in ``part`` order),
@@ -870,12 +1003,13 @@ def _iter_chunks_serial(
     if extra_device_outputs is not None and not fetch:
         raise ValueError("extra_device_outputs needs fetch=True")
     dev = resolve_device(device)
+    n_dev = 1 if mesh is None else len(mesh)
     policy = policy or DEFAULT_POLICY
     if outcomes is None:
         outcomes = ChunkOutcomes()
     k = len(loaded[0][1])
     nb = bucket_size(max(bs.n for _, sets in loaded for bs in sets))
-    chunk = _auto_chunk(len(loaded), k, nb)
+    chunk = _auto_chunk(len(loaded), k, nb, n_dev)
     if info is not None:
         info.update(chunk=chunk, capacity=nb)
 
@@ -885,7 +1019,7 @@ def _iter_chunks_serial(
             res, packed = run_consensus_batch(
                 cbatch, box_size, threshold=threshold,
                 max_neighbors=max_neighbors, spatial=spatial, solver=solver,
-                use_pallas=use_pallas, device=dev, full=fetch,
+                use_pallas=use_pallas, device=dev, full=fetch, mesh=mesh,
             )
             if not fetch:
                 return res, packed
@@ -943,7 +1077,8 @@ def _iter_chunks_serial(
         _check_cancel()
         single = chunk >= len(loaded)
         part = loaded[i : i + chunk]
-        cbatch = pad_batch(part, pad_micrographs_to=1 if single else chunk,
+        cbatch = pad_batch(part,
+                           pad_micrographs_to=n_dev if single else chunk,
                            capacity=nb)
         ckey = f"chunk:{part[0][0]}:{len(part)}"
         t1 = time.time()
@@ -955,12 +1090,15 @@ def _iter_chunks_serial(
                 faults.inject("io", ckey)
                 res, extras = _execute(cbatch)
             _CHUNKS.inc()
+            report = consume_dispatch_report()
+            if journal is not None and report is not None:
+                journal.record_event("chunk_dispatches", **report)
         except Exception as e:  # noqa: BLE001 — routed to the ladder
             kind = classify_error(e)
-            if kind == "oom" and chunk > 1:
+            if kind == "oom" and chunk > n_dev:
                 # the failed attempt's tensors die with ``e`` at the end
                 # of this block, so the halved retry can reuse them
-                chunk //= 2
+                chunk = max(-(-(chunk // 2) // n_dev) * n_dev, n_dev)
                 _CHUNK_HALVINGS.inc()
                 _log.info("consensus chunk exhausted device memory; "
                           f"retrying at {chunk} micrographs/chunk")
@@ -1426,6 +1564,19 @@ def _run_striped(loaded, out_dir, box_size, stripes, stats, journal, *,
     return stats
 
 
+def _resolve_mesh(dev: torch.device, use_mesh: bool, mesh) -> tuple:
+    """The devices a directory run splits its chunks over: ``mesh`` when
+    given, every card of the process for a card run with ``use_mesh``,
+    else ``dev`` alone."""
+    from repic_tpu_torch.parallel.mesh import consensus_mesh
+
+    if mesh is not None:
+        return consensus_mesh(mesh)
+    if use_mesh and dev.type == "cuda":
+        return consensus_mesh()
+    return (dev,)
+
+
 def run_consensus_dir(
     in_dir: str,
     out_dir: str,
@@ -1445,6 +1596,9 @@ def run_consensus_dir(
     retry_policy: RetryPolicy | None = None,
     solver_budget_s: float | None = None,
     device=None,
+    use_mesh: bool = True,
+    mesh=None,
+    cluster=None,
 ) -> dict:
     """Read ``in_dir/<picker>/*.box``, run consensus, write one output
     per micrograph into ``out_dir`` (deleted first unless ``resume``).
@@ -1469,10 +1623,39 @@ def run_consensus_dir(
     goes on; ``strict`` fails fast.  ``resume`` keeps ``out_dir`` and
     processes only the micrographs the journal does not record as
     done, unless the manifest pins another configuration, which
-    restarts the run from scratch.  Returns run statistics."""
+    restarts the run from scratch.  Every accepted chunk journals a
+    ``chunk_dispatches`` event.
+
+    ``use_mesh`` splits each chunk over every card of this process
+    (:func:`~repic_tpu_torch.parallel.mesh.consensus_mesh`; on the CPU
+    the mesh is ``device`` alone), or ``mesh`` names the devices;
+    ``use_mesh=False`` runs on ``device`` alone.  The output is the
+    same either way.
+
+    Cluster mode (``cluster=ClusterConfig(...)``): several processes
+    share ``out_dir`` and a coordination directory
+    (:mod:`repic_tpu_torch.runtime.cluster`).  Each heartbeats, leases
+    its shard of the micrographs, journals to ``_journal.<host>.jsonl``
+    (and writes ``_events.<host>.jsonl``, ``_metrics.<host>.json``,
+    ``_trace.<host>.jsonl``), checks for a fence and its crash points
+    at chunk boundaries, and after its own lease takes over the work of
+    hosts whose heartbeat went stale.  A cluster run always resumes
+    (``out_dir`` is never deleted under live peers) and composes with
+    the batched path only.  Returns run statistics (``stats["cluster"]``
+    in cluster mode)."""
     _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
                  use_pallas)
+    if cluster is not None:
+        if stripes is not None:
+            raise ValueError(
+                "cluster mode composes with the batched path only "
+                "(not --stripes)"
+            )
+        # a shared out_dir is never deleted under live peers
+        resume = True
     dev = resolve_device(device)
+    mesh = _resolve_mesh(dev, use_mesh, mesh)
+    dev = mesh[0]
     policy = retry_policy or DEFAULT_POLICY
     timer = StageTimer()
     t0 = time.time()
@@ -1496,21 +1679,35 @@ def run_consensus_dir(
         "pickers": pickers,
         "names": names,
     }
-    journal = RunJournal.open(out_dir, run_config, resume=resume)
-    if resume and not journal.resumed:
-        # --resume found another run (or none): start from scratch, so
-        # no output of the other run survives beside this one's
-        journal.close()
-        shutil.rmtree(out_dir)
-        os.makedirs(out_dir, exist_ok=True)
-        journal = RunJournal.open(out_dir, run_config)
-    # the event log and the metric sinks live next to the journal
-    run_tlm = telemetry.start_run(out_dir)
+    ctx = host = None
+    if cluster is not None:
+        from repic_tpu_torch.runtime.cluster import ClusterContext
+
+        ctx = ClusterContext(cluster, out_dir)
+        host = ctx.host
+        # per-host journal over the merged view; a manifest of another
+        # configuration raises ManifestMismatch (no restart)
+        journal = RunJournal.open(out_dir, run_config, host=host,
+                                  cluster=True)
+        ctx.start()
+    else:
+        journal = RunJournal.open(out_dir, run_config, resume=resume)
+        if resume and not journal.resumed:
+            # --resume found another run (or none): start from scratch,
+            # so no output of the other run survives beside this one's
+            journal.close()
+            shutil.rmtree(out_dir)
+            os.makedirs(out_dir, exist_ok=True)
+            journal = RunJournal.open(out_dir, run_config)
+    # the event log and the metric sinks live next to the journal (per
+    # host in a shared directory)
+    run_tlm = telemetry.start_run(out_dir, host=host)
     run_id = run_tlm.log.run_id if run_tlm.log is not None else None
     # a synthetic root trace, unless the caller runs this inside one
     trace_ctx = trace_token = None
     if tlm_trace.current() is None:
-        trace_ctx = tlm_trace.start(out_dir, kind="cli", run_id=run_id)
+        trace_ctx = tlm_trace.start(out_dir, kind="cli", host=host,
+                                    run_id=run_id)
         trace_token = tlm_trace.activate(trace_ctx)
     tlm_server.set_status(
         run_id=run_id,
@@ -1519,6 +1716,14 @@ def run_consensus_dir(
         micrographs_total=len(names),
         chunks_done=0,
     )
+    if ctx is not None:
+        tlm_server.set_status(cluster={
+            "host": ctx.host,
+            "rank": ctx.rank,
+            "num_hosts": ctx.num_hosts,
+            "coordination_dir": os.path.abspath(ctx.coord_dir),
+            "host_timeout_s": ctx.cfg.host_timeout_s,
+        })
     try:
         return _run_journaled(
             in_dir, out_dir, box_size, pickers, names, journal, timer, t0,
@@ -1526,12 +1731,16 @@ def run_consensus_dir(
             num_particles=num_particles, spatial=spatial, solver=solver,
             use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
             stripes=stripes, strict=strict, policy=policy,
-            solver_budget_s=solver_budget_s, dev=dev, run_tlm=run_tlm,
+            solver_budget_s=solver_budget_s, dev=dev, mesh=mesh,
+            run_tlm=run_tlm, ctx=ctx,
         )
     finally:
         # a raising run still restores the previous event log and
-        # writes its sinks
+        # writes its sinks; a cluster host records a clean stop, so
+        # peers take over what it left without waiting out a timeout
         journal.close()
+        if ctx is not None:
+            ctx.stop()
         telemetry.finish_run(run_tlm)
         if trace_token is not None:
             tlm_trace.deactivate(trace_token)
@@ -1544,9 +1753,10 @@ def run_consensus_dir(
 def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
                    timer, t0, *, threshold, max_neighbors, num_particles,
                    spatial, solver, use_pallas, multi_out, get_cc, stripes,
-                   strict, policy, solver_budget_s, dev, run_tlm):
+                   strict, policy, solver_budget_s, dev, mesh, run_tlm,
+                   ctx=None):
     """:func:`run_consensus_dir` once its journal and telemetry are
-    open."""
+    open (and, in cluster mode, its :class:`ClusterContext` started)."""
     out_ext = ".tsv" if multi_out else ".box"
     already_done = set()
     if journal.resumed:
@@ -1555,7 +1765,15 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             out_name = latest[nm].get("out", nm + out_ext)
             if os.path.exists(os.path.join(out_dir, out_name)):
                 already_done.add(nm)
-    todo = [n for n in names if n not in already_done]
+    if ctx is not None:
+        # this host's shard of the FULL name list (a done-filtered list
+        # would move the shard boundaries between staggered hosts);
+        # dead peers' unfinished names come back into it
+        todo = ctx.plan_shard(names, journal, done=already_done,
+                              strict=strict)
+        ctx.crash_point("start")
+    else:
+        todo = [n for n in names if n not in already_done]
 
     def _load_one(nm):
         """One micrograph's BOX files; in lenient mode a read or parse
@@ -1567,29 +1785,38 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
                 raise
             return e
 
-    # the native parser releases the GIL: threads overlap the reads;
-    # map keeps the order
-    with tlm_trace.segment("load", micrographs=len(todo)), \
-            tlm_events.span("load", micrographs=len(todo)):
-        if len(todo) > 1:
-            workers = min(32, max(4, os.cpu_count() or 4))
-            with ThreadPoolExecutor(max_workers=workers) as ex:
-                all_sets = list(ex.map(_load_one, todo))
-        else:
-            all_sets = [_load_one(nm) for nm in todo]
-    loaded, skipped, quarantined = [], [], {}
-    for name, sets in zip(todo, all_sets):
-        if isinstance(sets, BaseException):
-            info = error_info(sets, path=getattr(sets, "path", None),
-                              kind=classify_error(sets))
-            quarantined[name] = info
-            journal.record(name, "quarantined", error=info, stage="load")
-        elif sets is None:
-            skipped.append(name)
-            box_io.write_empty_box(os.path.join(out_dir, name + ".box"))
-            journal.record(name, "skipped", out=name + ".box")
-        else:
-            loaded.append((name, sets))
+    skipped, quarantined = [], {}
+
+    def _load(nms):
+        """Load ``nms`` -- the native parser releases the GIL, so
+        threads overlap the reads; map keeps the order -- and journal
+        the quarantines and the empty inputs; returns the
+        ``(name, sets)`` pairs to run."""
+        with tlm_trace.segment("load", micrographs=len(nms)), \
+                tlm_events.span("load", micrographs=len(nms)):
+            if len(nms) > 1:
+                workers = min(32, max(4, os.cpu_count() or 4))
+                with ThreadPoolExecutor(max_workers=workers) as ex:
+                    all_sets = list(ex.map(_load_one, nms))
+            else:
+                all_sets = [_load_one(nm) for nm in nms]
+        out = []
+        for name, sets in zip(nms, all_sets):
+            if isinstance(sets, BaseException):
+                info = error_info(sets, path=getattr(sets, "path", None),
+                                  kind=classify_error(sets))
+                quarantined[name] = info
+                journal.record(name, "quarantined", error=info,
+                               stage="load")
+            elif sets is None:
+                skipped.append(name)
+                box_io.write_empty_box(os.path.join(out_dir, name + ".box"))
+                journal.record(name, "skipped", out=name + ".box")
+            else:
+                out.append((name, sets))
+        return out
+
+    loaded = _load(todo)
     stats = {
         "pickers": pickers,
         "micrographs": len(names),
@@ -1605,16 +1832,33 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
         "particle_counts": {},
         "clique_counts": {},
         "chunks": 0,
+        "compute_s": 0.0,
+        "write_s": 0.0,
     }
-    if not loaded:
+    if not loaded and ctx is None:
         stats["total_s"] = time.time() - t0
         stats["journal"] = journal.summary()
         return stats
+    # a cluster host goes on with an empty shard: the harvest below
+    # may still take over a lost peer's work
     timer.stages.append(("load", stats["load_s"]))
     if stripes == "auto":
-        # the reference stripes only when there are fewer micrographs
-        # than devices: never with one device
-        stripes = None
+        # stripe only when there are fewer micrographs than devices
+        # (the batched axis would leave devices idle) and the fields
+        # are dense; the tables need the batched path
+        max_n = max((bs.n for _, sets in loaded for bs in sets), default=0)
+        if (not (multi_out or get_cc or solver == "exact")
+                and len(loaded) < len(mesh)
+                and max_n > SPATIAL_THRESHOLD):
+            stripes = len(mesh)
+            if use_pallas:
+                warnings.warn(
+                    "--pallas applies to the batched dense path only; "
+                    "--stripes auto selected the striped path",
+                    stacklevel=3,
+                )
+        else:
+            stripes = None
     if stripes is not None:
         _run_striped(
             loaded, out_dir, box_size, stripes, stats, journal,
@@ -1623,14 +1867,40 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             dev=dev, run_tlm=run_tlm,
         )
     else:
-        _run_chunked(
-            loaded, out_dir, box_size, pickers, stats, journal,
+        outcomes = ChunkOutcomes()
+        if ctx is not None:
+            # takeovers of a previous generation, recorded by plan_shard
+            outcomes.reassigned.update(ctx.reassigned)
+        kw = dict(
             threshold=threshold, max_neighbors=max_neighbors,
             num_particles=num_particles, spatial=spatial, solver=solver,
             use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
             strict=strict, policy=policy, solver_budget_s=solver_budget_s,
-            dev=dev, out_ext=out_ext, run_tlm=run_tlm,
+            dev=dev, mesh=mesh, out_ext=out_ext, run_tlm=run_tlm,
+            outcomes=outcomes, ctx=ctx,
         )
+        if loaded:
+            _run_chunked(loaded, out_dir, box_size, pickers, stats,
+                         journal, **kw)
+        # the host ladder's reassignment rung: after its own lease a
+        # cluster host takes over the work of peers whose heartbeat
+        # went stale (suspect -> fence -> reassign) until none is left
+        while ctx is not None:
+            orphans = ctx.harvest_orphans(journal, names, strict=strict)
+            if not orphans:
+                break
+            outcomes.reassigned.update(ctx.reassigned)
+            adopted = _load(orphans)
+            if adopted:
+                _run_chunked(adopted, out_dir, box_size, pickers, stats,
+                             journal, **kw)
+        # micrographs the ladder quarantined while chunking (journaled
+        # as it happened)
+        stats["quarantined"].update(outcomes.quarantined)
+        if solver == "exact":
+            stats["solver_rungs"] = dict(outcomes.solver)
+    if ctx is not None:
+        stats["cluster"] = ctx.stats()
     timer.stages.append(("compute", stats["compute_s"]))
     timer.stages.append(("write", stats["write_s"]))
     timer.write_tsv(out_dir, "consensus_runtime.tsv")
@@ -1642,18 +1912,21 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
 def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
                  threshold, max_neighbors, num_particles, spatial, solver,
                  use_pallas, multi_out, get_cc, strict, policy,
-                 solver_budget_s, dev, out_ext, run_tlm):
-    """The batched branch: the chunk engine, one journal record per
-    micrograph, quarantines of the ladder into ``stats``; per chunk the
-    ``compile`` / ``execute`` / ``emit`` trace segments, a sink flush
-    and the ``/status`` progress."""
+                 solver_budget_s, dev, mesh, out_ext, run_tlm, outcomes,
+                 ctx=None):
+    """The batched branch over one work list (a cluster host calls it
+    again for each batch of work it takes over): the chunk engine, one
+    journal record per micrograph (with ``reassigned_from`` for work
+    taken over), the ladder's outcomes in ``outcomes``; per chunk the
+    ``compile`` / ``execute`` / ``emit`` trace segments, a sink flush,
+    the ``/status`` progress and, in cluster mode, the crash point and
+    the fence check.  ``stats`` accumulates across calls."""
     host_solver = solver == "exact"
     # the exact solver shares the tables' data path: the device runs
     # the greedy program and the host re-solves the fetched result
     want_fetch = multi_out or get_cc or host_solver
     device_solver = "greedy" if host_solver else solver
     k = len(loaded[0][1])
-    outcomes = ChunkOutcomes()
     cc_fn = None
     if get_cc:
         cc_sizes = np.asarray(box_size, np.float32)
@@ -1697,7 +1970,7 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
             o.write(content)
 
     compute_s = write_s = 0.0
-    cc_rounds = []
+    cc_rounds = stats.setdefault("cc_rounds", []) if get_cc else []
     chunks_info: dict = {}
     # a chunk's window since the previous chunk's emit: the build
     # seconds inside it are its compile segment (with the program-cache
@@ -1708,7 +1981,7 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
     for part, cbatch, res, extra, chunk_s in iter_consensus_chunks(
         loaded, box_size, info=chunks_info,
         threshold=threshold, max_neighbors=max_neighbors, spatial=spatial,
-        solver=device_solver, use_pallas=use_pallas, device=dev,
+        solver=device_solver, use_pallas=use_pallas, device=dev, mesh=mesh,
         extra_device_outputs=cc_fn, fetch=want_fetch, finish=_finish,
         strict=strict, policy=policy, outcomes=outcomes, journal=journal,
     ):
@@ -1758,26 +2031,39 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
         stats["num_cliques"] += int(np.sum(nc[: len(part)], dtype=np.int64))
         stats["chunks"] += 1
         for nm, _sets in part:
-            journal.record(
-                nm, outcomes.status.get(nm, "ok"),
+            fields = dict(
                 wall_s=round(chunk_s / max(len(part), 1), 6),
                 solver=outcomes.solver.get(nm, solver),
                 particles=counts.get(nm), out=nm + out_ext,
             )
+            src = outcomes.reassigned.get(nm)
+            if src is not None:
+                fields["reassigned_from"] = src
+            journal.record(nm, outcomes.status.get(nm, "ok"), **fields)
         telemetry.flush_run(run_tlm)
         ladder_tally: dict = {}
         for st in outcomes.status.values():
             ladder_tally[st] = ladder_tally.get(st, 0) + 1
-        # progress over the whole run: resumed, skipped and quarantined
-        # micrographs count as processed
-        q_count = len(stats["quarantined"]) + len(outcomes.quarantined)
+        if ctx is not None:
+            # a cluster host counts the whole run's progress, its peers'
+            # included, from the merged journal; quarantines from the
+            # same view
+            merged = ctx.merged_latest()
+            q_count = sum(1 for e in merged.values()
+                          if e.get("status") == STATUS_QUARANTINED)
+            done = q_count + sum(1 for e in merged.values()
+                                 if e.get("status") in DONE_STATUSES)
+        else:
+            # progress over the whole run: resumed, skipped and
+            # quarantined micrographs count as processed
+            q_count = len(stats["quarantined"]) + len(outcomes.quarantined)
+            done = (stats["resumed"] + len(stats["particle_counts"])
+                    + len(stats["skipped"]) + q_count)
         tlm_server.set_ready(True)  # the first chunk is done: warmed up
         tlm_server.set_status(
             phase="running",
             chunks_done=stats["chunks"],
-            micrographs_done=stats["resumed"]
-            + len(stats["particle_counts"]) + len(stats["skipped"])
-            + q_count,
+            micrographs_done=done,
             quarantined=q_count,
             ladder=ladder_tally,
         )
@@ -1788,12 +2074,11 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
         t_mark = time.time()
         comp_mark = tlm_probes.compile_seconds()
         hits_mark, miss_mark = hits_now, miss_now
-    # micrographs the ladder quarantined while chunking (journaled as
-    # it happened)
-    stats["quarantined"].update(outcomes.quarantined)
-    if host_solver:
-        stats["solver_rungs"] = dict(outcomes.solver)
-    if get_cc:
-        stats["cc_rounds"] = cc_rounds
+        if ctx is not None:
+            # the host_crash site, and a fenced host stops before its
+            # next chunk (a survivor owns its lease now)
+            ctx.crash_point(f"after_chunk:{stats['chunks'] - 1}")
+            ctx.ensure_not_fenced()
     stats.update(chunk=chunks_info["chunk"], capacity=chunks_info["capacity"],
-                 compute_s=compute_s, write_s=write_s)
+                 compute_s=stats["compute_s"] + compute_s,
+                 write_s=stats["write_s"] + write_s)

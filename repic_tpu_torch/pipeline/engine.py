@@ -56,8 +56,9 @@ from repic_tpu_torch.telemetry import events as tlm_events
 class ConsensusOptions:
     """The consensus knobs of one request, as one serializable value:
     the serve request's ``options`` object and the engine's planning
-    input.  The reference's keys exactly; ``use_mesh`` selects nothing
-    on one card, and ``use_mesh``/``use_pallas`` stay out of
+    input.  The reference's keys exactly; ``use_mesh`` splits each
+    chunk over every card of the process (:func:`request_mesh`), and
+    ``use_mesh``/``use_pallas`` stay out of
     :attr:`RequestPlan.bucket_key`."""
 
     threshold: float = DEFAULT_THRESHOLD
@@ -154,7 +155,7 @@ class ChunkPlan:
     index: int
     names: tuple
     capacity: int      # padded particle capacity (bucket_size grid)
-    micrographs: int   # padded micrograph count
+    micrographs: int   # padded micrograph count (mesh multiple)
 
 
 @dataclass(frozen=True)
@@ -184,32 +185,46 @@ class RequestPlan:
         )
 
 
+def request_mesh(options: ConsensusOptions | None, device) -> tuple:
+    """The devices a request's chunks are split over: every card of
+    the process when ``options.use_mesh`` and ``device`` is a card,
+    else ``device`` alone (its length is the plan's ``n_dev``)."""
+    from repic_tpu_torch.parallel.mesh import consensus_mesh
+
+    dev = resolve_device(device)
+    if (options is None or options.use_mesh) and dev.type == "cuda":
+        return consensus_mesh()
+    return (dev,)
+
+
 def plan_request(
     loaded,
     box_size,
     options: ConsensusOptions | None = None,
+    *,
+    n_dev: int = 1,
 ) -> RequestPlan:
     """Plan a request over already-loaded ``(name, [BoxSet])`` pairs:
     the ``bucket_size`` / ``_auto_chunk`` arithmetic of
-    :func:`iter_consensus_chunks` as a value, with no file and no
-    device work, on one card (``n_dev`` 1).  Runs in a
+    :func:`iter_consensus_chunks` over a mesh of ``n_dev`` devices as a
+    value, with no file and no device work.  Runs in a
     ``plan_request`` span."""
     options = options or ConsensusOptions()
     if not loaded:
         raise ValueError("plan_request needs >= 1 loaded micrograph")
     with tlm_events.span("plan_request", micrographs=len(loaded),
-                         n_dev=1):
+                         n_dev=n_dev):
         k = len(loaded[0][1])
         nb = bucket_size(
             max(bs.n for _, sets in loaded for bs in sets)
         )
-        chunk = _auto_chunk(len(loaded), k, nb)
+        chunk = _auto_chunk(len(loaded), k, nb, n_dev)
         names = [n for n, _ in loaded]
         single = chunk >= len(loaded)
         chunks = []
         for idx, start in enumerate(range(0, len(names), chunk)):
             part = tuple(names[start : start + chunk])
-            m = len(part) if single else chunk
+            m = -(-len(part) // n_dev) * n_dev if single else chunk
             chunks.append(
                 ChunkPlan(
                     index=idx, names=part, capacity=nb, micrographs=m
@@ -220,7 +235,7 @@ def plan_request(
             num_pickers=k,
             capacity=nb,
             chunk=chunk,
-            n_dev=1,
+            n_dev=n_dev,
             chunks=tuple(chunks),
         )
 
@@ -231,11 +246,13 @@ def execute_request(
     options: ConsensusOptions | None = None,
     *,
     device=None,
+    mesh=None,
     cancel=None,
     outcomes=None,
     journal=None,
 ):
-    """Execute a request chunk by chunk (a generator).
+    """Execute a request chunk by chunk (a generator), each chunk split
+    over ``mesh`` (default :func:`request_mesh`).
 
     Yields ``(part, batch, result, packed, seconds)`` per chunk: the
     default fetch of :func:`iter_consensus_chunks`, whose extras are
@@ -247,6 +264,8 @@ def execute_request(
     ``options.strict``).
     """
     options = options or ConsensusOptions()
+    if mesh is None:
+        mesh = request_mesh(options, device)
     yield from iter_consensus_chunks(
         loaded,
         box_size,
@@ -255,7 +274,8 @@ def execute_request(
         spatial=options.spatial,
         solver=options.solver,
         use_pallas=options.use_pallas,
-        device=device,
+        device=mesh[0],
+        mesh=mesh,
         strict=options.strict,
         policy=options.policy(),
         outcomes=outcomes,

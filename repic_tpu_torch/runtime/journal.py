@@ -24,12 +24,18 @@ append) is skipped on read.  A record written while a trace context
 is active (:mod:`repic_tpu_torch.telemetry.trace`) carries its
 ``trace`` id.
 
-The read half of the reference's multi-host scheme is here too, for
-``report`` and ``trace``: per-host artifact names
-(:func:`sanitize_host_id`, :func:`host_artifact_paths`), the merged
-read over every ``_journal[.<host>].jsonl`` (:func:`read_all_journals`,
-:func:`fold_latest`, :class:`MergedJournalReader`).  Writing a shared
-run directory from several hosts is not ported.
+Cluster runs (``RunJournal.open(..., host=, cluster=True)``): each
+host appends to its own ``_journal.<host>.jsonl`` (one writer per
+file; a crashed host tears at most its own last line) and every record
+carries ``host``.  Readers merge on read: :func:`read_all_journals`
+concatenates every journal file of the run sorted by timestamp and
+:func:`merged_latest` folds it last-writer-wins per micrograph, the
+view a cluster resume, the orphan harvest and ``report`` trust.  The
+shared ``_manifest.json`` is created once under
+:func:`~repic_tpu_torch.runtime.atomic.file_lock`; a cluster open of
+another configuration raises :class:`ManifestMismatch` instead of
+restarting, since deleting a directory under live peers is never
+safe.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import re
 import threading
 import time
 
-from repic_tpu_torch.runtime.atomic import atomic_write
+from repic_tpu_torch.runtime.atomic import atomic_write, file_lock
 
 JOURNAL_NAME = "_journal.jsonl"
 MANIFEST_NAME = "_manifest.json"
@@ -99,9 +105,7 @@ DONE_STATUSES = frozenset(
 
 
 class ManifestMismatch(ValueError):
-    """A manifest pins a different run configuration, where restarting
-    is not safe (a directory shared by several hosts, not ported
-    yet)."""
+    """A cluster open found a manifest pinning a different run."""
 
 
 def error_info(exc: BaseException, **extra) -> dict:
@@ -114,9 +118,11 @@ def error_info(exc: BaseException, **extra) -> dict:
 class RunJournal:
     """Append-only JSONL journal with a configuration manifest."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, host: str | None = None):
         self.out_dir = out_dir
-        self.path = os.path.join(out_dir, JOURNAL_NAME)
+        self.host = host
+        self.path = os.path.join(
+            out_dir, host_journal_name(host) if host else JOURNAL_NAME)
         self.manifest_path = os.path.join(out_dir, MANIFEST_NAME)
         self.resumed = False
         self._latest: dict[str, dict] = {}
@@ -127,15 +133,43 @@ class RunJournal:
         self._wlock = threading.Lock()
 
     @classmethod
-    def open(cls, out_dir: str, config: dict, *, resume: bool = False):
+    def open(cls, out_dir: str, config: dict, *, resume: bool = False,
+             host: str | None = None, cluster: bool = False):
         """Open the journal of a run configuration; with ``resume`` and
         a manifest of the same configuration, load its entries.
 
         ``config`` must be JSON-serialisable; it is compared after a
-        JSON round trip, so a tuple and a list are the same."""
-        j = cls(out_dir)
+        JSON round trip, so a tuple and a list are the same.
+
+        ``cluster`` (needs ``host``) appends to this host's
+        ``_journal.<host>.jsonl`` and loads the merged view of every
+        host's journal; the manifest is written once under a file lock
+        and one of another configuration raises
+        :class:`ManifestMismatch`."""
+        if cluster and not host:
+            raise ValueError("cluster journals require a host id")
+        j = cls(out_dir, host=host)
         config = json.loads(json.dumps(config))
         os.makedirs(out_dir, exist_ok=True)
+        if cluster:
+            with file_lock(j.manifest_path):
+                prev = j._read_manifest()
+                if prev is None:
+                    with atomic_write(j.manifest_path) as f:
+                        json.dump({"config": config, "created": time.time()},
+                                  f, indent=2)
+                elif prev.get("config") != config:
+                    raise ManifestMismatch(
+                        f"manifest in {out_dir} pins a different run "
+                        "configuration; cluster mode never restarts a "
+                        "shared directory — point the run elsewhere "
+                        "or fix the flags"
+                    )
+            entries = read_all_journals(out_dir)
+            j._latest.update(fold_latest(entries))
+            j._events.extend(e for e in entries if "event" in e)
+            j.resumed = bool(j._latest or j._events)
+            return j
         prev = j._read_manifest()
         if resume and prev is not None and prev.get("config") == config:
             j.resumed = True
@@ -163,6 +197,8 @@ class RunJournal:
         """Append one micrograph's outcome."""
         entry = {"name": name, "status": status, "ts": time.time()}
         entry.update(fields)
+        if self.host:
+            entry["host"] = self.host
         self._append(entry)
         self._latest[name] = entry
         return entry
@@ -171,6 +207,8 @@ class RunJournal:
         """Append a run-level event (a retry, a halved chunk, ...)."""
         entry = {"event": event, "ts": time.time()}
         entry.update(fields)
+        if self.host:
+            entry["host"] = self.host
         self._append(entry)
         self._events.append(entry)
         return entry

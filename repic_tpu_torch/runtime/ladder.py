@@ -17,15 +17,14 @@
   search).  The ``solver_budget`` and ``solver_diverge`` fault sites
   (:mod:`~repic_tpu_torch.runtime.faults`) fire here.
 * **host rung** (:func:`host_rung`): a host classified from its
-  heartbeat age, for the cluster runs that are not ported yet.
+  heartbeat age, the liveness ladder of the cluster runs
+  (:mod:`~repic_tpu_torch.runtime.cluster`).
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, field
-
-import numpy as np
-import torch
 
 from repic_tpu_torch.runtime import faults
 
@@ -34,7 +33,10 @@ def is_oom_error(e: BaseException) -> bool:
     """Device or host allocator exhaustion: a
     ``torch.cuda.OutOfMemoryError`` by its type, anything else by its
     message (an injected ``oom`` says ``RESOURCE_EXHAUSTED``)."""
-    if isinstance(e, torch.cuda.OutOfMemoryError):
+    # no torch in the process means no torch error (this package's
+    # runtime layer imports only the stdlib)
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(e, torch.cuda.OutOfMemoryError):
         return True
     s = str(e).lower()
     return "out of memory" in s or "resource_exhausted" in s
@@ -84,6 +86,7 @@ class ChunkOutcomes:
     status: dict = field(default_factory=dict)       # name -> retried|degraded
     quarantined: dict = field(default_factory=dict)  # name -> error info
     solver: dict = field(default_factory=dict)       # name -> rung that ran
+    reassigned: dict = field(default_factory=dict)   # name -> source host
 
     def mark(self, names, status: str) -> None:
         """Record a status; ``degraded`` wins over ``retried``."""
@@ -152,6 +155,8 @@ def solve_host_ladder(
         hit the node limit (greedy inside that component) reports as
         ``exact_fallback``.
     """
+    import numpy as np
+
     from repic_tpu_torch.ops.solver import (
         SolverBudgetExceeded,
         solve_exact,
@@ -215,6 +220,9 @@ def solve_host_ladder(
 
 def _solve_device(fn, member_vertex, w, num_vertices, device):
     """One packing as a batch of one on ``device``."""
+    import numpy as np
+    import torch
+
     dev = torch.device(device)
     return fn(
         torch.as_tensor(member_vertex, dtype=torch.int32, device=dev)[None],

@@ -244,9 +244,11 @@ class ContinuousBatcher:
         tlm_server.observe_slo("queue_wait", queue_wait)
         out_dir = daemon.job_dir(job.id)
         os.makedirs(out_dir, exist_ok=True)
+        replica = daemon.fleet.replica if daemon.fleet else None
         tctx = tlm_trace.start(
             out_dir,
             trace_id=job.trace_id,
+            host=replica,
             kind="serve",
             job=job.id,
             accepted_ts=round(job.accepted_ts, 6),
@@ -259,7 +261,7 @@ class ContinuousBatcher:
                 "queue_wait", job.accepted_ts, queue_wait
             )
             return self._open_job_traced(
-                job, out_dir, tctx, t_picked
+                job, out_dir, tctx, t_picked, replica
             )
         except Exception as e:  # noqa: BLE001 - isolation boundary
             tctx.close()
@@ -268,7 +270,7 @@ class ContinuousBatcher:
             tlm_trace.deactivate(token)
 
     def _open_job_traced(
-        self, job, out_dir, tctx, t_picked
+        self, job, out_dir, tctx, t_picked, replica
     ) -> OpenJob | None:
         import numpy as np
 
@@ -279,6 +281,10 @@ class ContinuousBatcher:
 
         daemon = self.daemon
         crash_point(f"run:{job.id}")
+        if daemon.fleet is not None:
+            from repic_tpu_torch.serve import fleet as fleet_mod
+
+            fleet_mod.crash_point(replica, f"run:{job.id}")
         t0 = daemon._clock()
         if (
             job.deadline_ts is not None
@@ -317,6 +323,8 @@ class ContinuousBatcher:
             out_dir,
             run_config,
             resume=True,
+            host=replica,
+            cluster=replica is not None,
         )
         # the run scope is deliberately CROSS-FUNCTION: it stays
         # open while the job is open (chunks from many scheduler
@@ -326,6 +334,7 @@ class ContinuousBatcher:
         rt = telemetry.start_run(
             out_dir,
             run_id=f"serve-{job.id}",
+            host=replica,
         )
         try:
             already = set()
@@ -368,7 +377,10 @@ class ContinuousBatcher:
                 loaded.append((nm, sets))
             key = None
             if loaded:
-                plan = engine.plan_request(loaded, box_size, options)
+                n_dev = len(engine.request_mesh(options, daemon.device))
+                plan = engine.plan_request(
+                    loaded, box_size, options, n_dev=n_dev
+                )
                 key = CoalesceKey(
                     bucket_key=plan.bucket_key,
                     box_sizes=tuple(
@@ -382,7 +394,7 @@ class ContinuousBatcher:
                     use_mesh=options.use_mesh,
                     spatial=options.spatial,
                     use_pallas=options.use_pallas,
-                    n_dev=1,  # one card: ``use_mesh`` selects nothing
+                    n_dev=n_dev,
                 )
                 job.progress = {
                     "chunks_total": len(plan.chunks),
@@ -462,7 +474,9 @@ class ContinuousBatcher:
         self._last_capacity = key.capacity
         jobs = groups[key]
         total = sum(len(oj.pending) for oj in jobs)
-        target = _auto_chunk(total, jobs[0].num_pickers, key.capacity)
+        target = _auto_chunk(
+            total, jobs[0].num_pickers, key.capacity, key.n_dev
+        )
         # deal onto the shape ladder: either fill (>= 3/4) the next
         # ladder size up, or deal the ladder size below in full —
         # so arrival-pattern noise can never mint a new chunk shape
@@ -589,12 +603,12 @@ class ContinuousBatcher:
         return lo, lo * 4
 
     def _padded_micrographs(self, m_real: int, key: CoalesceKey):
-        """Pad the dealt chunk up to its ladder shape (one card: no
-        mesh-axis multiple, ``key.n_dev`` is 1)."""
+        """Pad the dealt chunk up to its ladder shape (and to a
+        multiple of the mesh)."""
         b = self.MIN_CHUNK_PAD
         while b < m_real:
             b *= 4
-        return b
+        return -(-b // key.n_dev) * key.n_dev
 
     # -- execution ----------------------------------------------------
 
@@ -639,6 +653,7 @@ class ContinuousBatcher:
                 ):
                     faults.inject("oom", ckey)
                     faults.inject("io", ckey)
+                    mesh = engine.request_mesh(opt, self.daemon.device)
                     _res, packed = run_consensus_batch(
                         batch,
                         box_size,
@@ -647,7 +662,8 @@ class ContinuousBatcher:
                         spatial=opt.spatial,
                         solver=opt.solver,
                         use_pallas=opt.use_pallas,
-                        device=self.daemon.device,
+                        device=mesh[0],
+                        mesh=mesh,
                     )
             finally:
                 tlm_trace.deactivate(lead)
@@ -738,6 +754,13 @@ class ContinuousBatcher:
             finally:
                 tlm_trace.deactivate(token)
             crash_point(f"run:{oj.job.id}:chunk:{oj.chunk_i}")
+            if self.daemon.fleet is not None:
+                from repic_tpu_torch.serve import fleet as fleet_mod
+
+                fleet_mod.crash_point(
+                    self.daemon.fleet.replica,
+                    f"chunk:{oj.job.id}:{oj.chunk_i}",
+                )
             oj.chunk_i += 1
 
     def _fallback(self, parts, exc: BaseException) -> None:
@@ -780,6 +803,12 @@ class ContinuousBatcher:
         reason = reason if isinstance(reason, str) else "cancelled"
         job.reason = reason
         try:
+            if reason.startswith("fenced"):
+                # a survivor owns the job now: stop without a terminal
+                # record -- the winner's commit is the one
+                self.queue.abandon(job)
+                self._close(oj)
+                return
             if reason.startswith("deadline"):
                 state = JOB_DEADLINE_EXCEEDED
             elif reason.startswith("draining"):

@@ -1,5 +1,6 @@
 """The ``serve`` daemon: HTTP surface, worker and recovery (the port of
-``repic_tpu.serve.daemon``, single host; the fleet is not ported).
+``repic_tpu.serve.daemon``; with ``fleet_dir`` one replica of a
+serving fleet, :mod:`repic_tpu_torch.serve.fleet`).
 
 Extends the status server (:mod:`repic_tpu_torch.telemetry.server`)
 with the job API, and runs one worker thread that drives accepted jobs
@@ -41,7 +42,9 @@ import torch
 from repic_tpu_torch import telemetry
 from repic_tpu_torch.runtime import faults
 from repic_tpu_torch.runtime.atomic import atomic_write
+from repic_tpu_torch.pipeline import consensus as consensus_mod
 from repic_tpu_torch.pipeline.consensus import resolve_device
+from repic_tpu_torch.serve import autoscale
 from repic_tpu_torch.serve import jobs as jobs_mod
 from repic_tpu_torch.serve import tenancy
 from repic_tpu_torch.serve.jobs import (
@@ -432,6 +435,9 @@ class ConsensusDaemon:
         warmup: bool = True,
         slo_targets: dict | None = None,
         fleet_dir: str | None = None,
+        replica_id: str | None = None,
+        heartbeat_interval_s: float = 2.0,
+        replica_timeout_s: float = 10.0,
         scheduler: str = "batch",
         max_open: int = 4,
         compile_cache: str | None = None,
@@ -441,10 +447,6 @@ class ConsensusDaemon:
         device=None,
         clock=time.time,
     ):
-        if fleet_dir is not None:
-            raise ValueError(
-                "fleet mode is not ported yet (ROADMAP Queue 1 item 8)"
-            )
         # the daemon's device: ``cuda`` unless the caller asks for the
         # CPU; a missing card raises here, before a port is bound.  A
         # card gets its index, which the worker thread selects.
@@ -500,25 +502,55 @@ class ConsensusDaemon:
             cooldown_s=breaker_cooldown_s,
             clock=clock,
         )
-        self.journal = ServeJournal(self.work_dir)
-        self.queue = JobQueue(
-            queue_limit,
-            self.journal,
-            breaker,
-            tenants=self.tenancy,
-            clock=clock,
-        )
+        self.fleet = None
+        if fleet_dir is not None:
+            # fleet mode: the durable queue and jobs/ live in
+            # FLEET_DIR, shared by every replica; this replica's
+            # work_dir keeps only its discovery file
+            from repic_tpu_torch.serve.fleet import FleetMember, FleetQueue
+
+            self.fleet = FleetMember(
+                fleet_dir,
+                replica_id,
+                heartbeat_interval_s=heartbeat_interval_s,
+                replica_timeout_s=replica_timeout_s,
+                reassign_budget=self.reassign_budget,
+                clock=clock,
+            )
+            self.journal = ServeJournal(
+                self.fleet.fleet_dir, replica=self.fleet.replica
+            )
+            self.queue = FleetQueue(
+                queue_limit,
+                self.journal,
+                self.fleet,
+                breaker,
+                tenants=self.tenancy,
+                clock=clock,
+            )
+        else:
+            self.journal = ServeJournal(self.work_dir)
+            self.queue = JobQueue(
+                queue_limit,
+                self.journal,
+                breaker,
+                tenants=self.tenancy,
+                clock=clock,
+            )
         self.server = ServeServer(self, port, host)
         # the compile-cache sidecar (runtime.compilecache): "auto"
-        # puts it in <work_dir>/_compile_cache; None (the direct
-        # construction default) leaves it off
+        # puts it in <fleet_dir>/_compile_cache (shared: a replacement
+        # replica starts warm) or <work_dir>/_compile_cache; None (the
+        # direct construction default) leaves it off
         self.compile_cache_dir = None
         if compile_cache is not None:
             from repic_tpu_torch.runtime import compilecache
 
+            root = (self.fleet.fleet_dir if self.fleet is not None
+                    else self.work_dir)
             self.compile_cache_dir = compilecache.resolve_dir(
                 None if compile_cache == "auto" else compile_cache,
-                os.path.join(self.work_dir, "_compile_cache"),
+                os.path.join(root, "_compile_cache"),
             )
             if self.compile_cache_dir is not None:
                 compilecache.enable(self.compile_cache_dir)
@@ -529,11 +561,20 @@ class ConsensusDaemon:
     # -- lifecycle ----------------------------------------------------
 
     def job_dir(self, job_id: str) -> str:
-        return os.path.join(self.work_dir, "jobs", job_id)
+        root = (self.fleet.fleet_dir if self.fleet is not None
+                else self.work_dir)
+        return os.path.join(root, "jobs", job_id)
 
     def start(self) -> "ConsensusDaemon":
         self._compact_journal()
-        recovered = self.journal.recover()
+        if self.fleet is not None:
+            # membership first: the heartbeat must be fresh (and a
+            # stale fence of this replica cleared) before peers read
+            # this replica's journal
+            self.fleet.start()
+            recovered = self.queue.recover_own()
+        else:
+            recovered = self.journal.recover()
         self.server.start()
         tlm_server.set_slo_tracker(self.slo)
         self.journal.record_event(
@@ -551,30 +592,32 @@ class ConsensusDaemon:
                 for ep, (t, g) in sorted(self.slo.objectives.items())
             },
         )
-        runnable = []
-        for job in recovered:
-            # the single-replica half of the poison-pill budget:
-            # a journaled in-flight job that already crashed
-            # budget + 1 daemon generations is quarantined here
-            # instead of re-crashing this one (docs/serving.md)
-            if job.attempts > self.reassign_budget:
-                self.queue.adopt(job, runnable=False)
-                job.reason = jobs_mod.quarantine_reason(
-                    job.attempts, self.reassign_budget
-                )
-                self._finish_job(
-                    job, JOB_QUARANTINED,
-                    reason=job.reason,
-                    attempts=job.attempts,
-                )
-                _QUARANTINED.inc(path="recover")
-                _log.error(
-                    f"quarantined job {job.id}: {job.reason}"
-                )
-            else:
-                self.queue.adopt(job)
-                runnable.append(job)
-        recovered = runnable
+        if self.fleet is None:
+            runnable = []
+            for job in recovered:
+                # the single-replica half of the poison-pill budget:
+                # a journaled in-flight job that already crashed
+                # budget + 1 daemon generations is quarantined here
+                # instead of re-crashing this one (the fleet's
+                # recover_own applies it itself)
+                if job.attempts > self.reassign_budget:
+                    self.queue.adopt(job, runnable=False)
+                    job.reason = jobs_mod.quarantine_reason(
+                        job.attempts, self.reassign_budget
+                    )
+                    self._finish_job(
+                        job, JOB_QUARANTINED,
+                        reason=job.reason,
+                        attempts=job.attempts,
+                    )
+                    _QUARANTINED.inc(path="recover")
+                    _log.error(
+                        f"quarantined job {job.id}: {job.reason}"
+                    )
+                else:
+                    self.queue.adopt(job)
+                    runnable.append(job)
+            recovered = runnable
         if recovered:
             _log.info(
                 f"recovered {len(recovered)} journaled job(s) "
@@ -588,6 +631,9 @@ class ConsensusDaemon:
             "port": self.server.port,
             "started_ts": self._clock(),
         }
+        if self.fleet is not None:
+            info["replica"] = self.fleet.replica
+            info["fleet_dir"] = self.fleet.fleet_dir
         with atomic_write(
             os.path.join(self.work_dir, SERVE_INFO_NAME)
         ) as f:
@@ -635,8 +681,22 @@ class ConsensusDaemon:
         after close — and never let a compaction problem take the
         daemon down: the journal's append path works regardless."""
         try:
+            terminal_ids = None
+            if self.fleet is not None:
+                # a job accepted here usually finishes on a peer, so
+                # this replica's own file never holds its terminal
+                # record: classify against the merged view and the
+                # completion tokens, or the journal would grow forever
+                view = self.queue.fleet_view()
+                terminal_ids = {
+                    jid
+                    for jid, info in view.items()
+                    if info["state"] in jobs_mod.TERMINAL_STATES
+                    or self.fleet.read_done(jid) is not None
+                }
             stats = self.journal.compact(
                 max_terminal=JobQueue.MAX_TERMINAL,
+                terminal_ids=terminal_ids,
             )
         except Exception as e:  # noqa: BLE001 - never fatal
             _log.error(f"journal compaction failed: {e}")
@@ -653,6 +713,11 @@ class ConsensusDaemon:
         if self._worker is not None:
             self._worker.join(timeout=self.drain_grace_s + 30.0)
         self.journal.record_event("drain_complete")
+        if self.fleet is not None:
+            # the final heartbeat records `stopped`, so peers may take
+            # over at once whatever is left (a clean drain leaves no
+            # lease behind)
+            self.fleet.stop(clean=True)
         if tlm_server.get_slo_tracker() is self.slo:
             tlm_server.set_slo_tracker(None)
         self.server.stop()
@@ -686,6 +751,16 @@ class ConsensusDaemon:
         )
         if self.tenancy is not None:
             fields["tenants"] = self._tenant_status()
+        # this process's kernel launches (the wrappers' counters): a
+        # replica's card work is readable off /status
+        fields["launches"] = consensus_mod.launch_counts()
+        if self.fleet is not None:
+            fields["fleet"] = self.queue.fleet_status()
+            # the autoscale supervisor's last published posture, when
+            # one runs over this fleet_dir
+            scale = autoscale.read_state(self.fleet.fleet_dir)
+            if scale is not None:
+                fields["autoscaler"] = scale
         tlm_server.set_status(**fields)
 
     def _tenant_status(self) -> dict:
@@ -803,7 +878,18 @@ class ConsensusDaemon:
                 job.cancel_reason = (
                     "deadline exceeded (injected fault)"
                 )
+            elif self.fleet is not None and self.fleet.is_fenced():
+                # a survivor fenced this replica and took the job over:
+                # stop at the chunk boundary without a terminal record
+                job.cancel_reason = "fenced by a peer replica"
             elif job.cancel_requested:
+                job.cancel_reason = "cancelled by client"
+            elif self.fleet is not None and (
+                self.queue.cancel_requested_remote(job.id)
+            ):
+                # a DELETE answered by another replica reaches the
+                # runner through the merged fleet journal
+                job.cancel_requested = True
                 job.cancel_reason = "cancelled by client"
             elif (
                 job.deadline_ts is not None
@@ -878,9 +964,14 @@ class ConsensusDaemon:
         )
         tlm_server.observe_slo("queue_wait", queue_wait)
         os.makedirs(out_dir, exist_ok=True)
+        # fleet mode: a per-replica _trace.<replica>.jsonl under the
+        # trace id minted at accept, so a job that fails over leaves
+        # two files that merge into one waterfall
+        replica = self.fleet.replica if self.fleet else None
         tctx = tlm_trace.start(
             out_dir,
             trace_id=job.trace_id,
+            host=replica,
             kind="serve",
             job=job.id,
             accepted_ts=round(job.accepted_ts, 6),
@@ -912,6 +1003,11 @@ class ConsensusDaemon:
         from repic_tpu_torch.utils import box_io
 
         crash_point(f"run:{job.id}")
+        replica = self.fleet.replica if self.fleet else None
+        if self.fleet is not None:
+            from repic_tpu_torch.serve import fleet as fleet_mod
+
+            fleet_mod.crash_point(replica, f"run:{job.id}")
         t0 = self._clock()
         # a job that aged out while queued never touches the device
         if (
@@ -958,14 +1054,21 @@ class ConsensusDaemon:
             # resume semantics give crash recovery its zero-loss
             # guarantee: a re-run of a journaled in-flight job skips
             # every micrograph whose outcome + artifact survived
+            # a fleet replica opens the run journal in cluster shape:
+            # each attempt appends to its own _journal.<replica>.jsonl
+            # and resumes from the merged view, so a takeover skips
+            # the lost replica's finished micrographs
             journal = run_journal = RunJournal.open(
                 out_dir,
                 run_config,
                 resume=True,
+                host=replica,
+                cluster=replica is not None,
             )
             rt = telemetry.start_run(
                 out_dir,
                 run_id=f"serve-{job.id}",
+                host=replica,
             )
             already = set()
             if journal.resumed:
@@ -1009,8 +1112,10 @@ class ConsensusDaemon:
                 loaded.append((nm, sets))
             outcomes = ChunkOutcomes()
             if loaded:
-                # one card: ``use_mesh`` selects nothing (n_dev 1)
-                plan = engine.plan_request(loaded, box_size, options)
+                mesh = engine.request_mesh(options, self.device)
+                plan = engine.plan_request(
+                    loaded, box_size, options, n_dev=len(mesh)
+                )
                 # the warm-affinity handle handed back to next_job
                 # must be the CAPACITY int (what clients declare as
                 # bucket_hint) — the full bucket_key tuple would
@@ -1041,7 +1146,8 @@ class ConsensusDaemon:
                     loaded,
                     box_size,
                     options,
-                    device=self.device,
+                    device=mesh[0],
+                    mesh=mesh,
                     cancel=self._cancel_check(job),
                     outcomes=outcomes,
                     journal=journal,
@@ -1130,6 +1236,10 @@ class ConsensusDaemon:
                         )
                         telemetry.flush_run(rt)
                     crash_point(f"run:{job.id}:chunk:{i}")
+                    if self.fleet is not None:
+                        fleet_mod.crash_point(
+                            replica, f"chunk:{job.id}:{i}"
+                        )
                     t_mark = time.time()
                     comp_mark = tlm_probes.compile_seconds()
                     hits_mark = hits_now
@@ -1169,6 +1279,12 @@ class ConsensusDaemon:
             # resumes instead of redoing
             reason = job.cancel_reason or "cancelled"
             job.reason = reason
+            if reason.startswith("fenced"):
+                # a survivor owns the job now: no terminal record and
+                # no re-queue (the fence winner's commit is the job's
+                # single completion)
+                self.queue.abandon(job)
+                return bucket
             if reason.startswith("deadline"):
                 state = JOB_DEADLINE_EXCEEDED
             elif reason.startswith("draining"):

@@ -12,8 +12,8 @@ thread; this module owns the state machine
 and the crash-safe request journal that carries it across process
 death: append-only JSONL, flushed per record, a torn trailing line
 tolerated on read -- the run journal's idioms.  The ``replica`` hooks
-belong to the fleet, which is not ported; a single daemon runs with
-``replica=None``.
+belong to the fleet (:mod:`repic_tpu_torch.serve.fleet`); a single
+daemon runs with ``replica=None``.
 """
 
 from __future__ import annotations

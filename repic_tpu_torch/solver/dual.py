@@ -255,3 +255,34 @@ def note_program_solves(n: int) -> None:
     """Count ``n`` micrograph solves run inside a chunk program."""
     if n > 0:
         _DEVICE_SOLVES.inc(int(n))
+
+
+def solve_lp_device_host(
+    member_vertex,
+    w,
+    num_vertices: int,
+    *,
+    num_iters: int = DEFAULT_NUM_ITERS,
+    tol: float = DEFAULT_TOL,
+    device="cuda",
+):
+    """Host arrays in, host values out: one ``(C, K)`` packing solved
+    on ``device`` as a batch of one, its diagnostics recorded, and
+    ``(picked, converged)`` returned.  ``converged=False`` is the
+    ladder's cue to degrade to the host rungs (the runtime ladder runs
+    the same solve through ``runtime/ladder.py: _solve_device``)."""
+    import numpy as np
+
+    dev = torch.device(device)
+    w = np.asarray(w, np.float32)
+    stats = solve_dual_decomposition(
+        torch.as_tensor(np.asarray(member_vertex), dtype=torch.int32,
+                        device=dev)[None],
+        torch.as_tensor(w, device=dev)[None],
+        torch.ones((1, len(w)), dtype=torch.bool, device=dev),
+        int(num_vertices),
+        num_iters=num_iters,
+        tol=tol,
+    )
+    record_device_solve(stats)
+    return stats.picked[0].cpu().numpy(), bool(stats.converged[0])

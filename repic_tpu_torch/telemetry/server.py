@@ -18,9 +18,11 @@ the surface is inert: :func:`set_status` is one global load and a
 branch, and nothing is bound or spawned.  Requests are served by a
 stdlib ``ThreadingHTTPServer`` in a daemon thread.
 
-The reference also recomputes cluster, fleet and gang liveness per
-scrape from their coordination directories; those layers are not
-ported, and a pushed section passes through as pushed.
+``/status`` recomputes the cluster and fleet liveness views on every
+request from their coordination directories
+(:func:`repic_tpu_torch.runtime.cluster.read_liveness`), so a lost
+peer reads ``suspect`` as soon as its heartbeat ages out.  A pushed
+``gang`` section passes through as pushed (the gang is not ported).
 """
 
 from __future__ import annotations
@@ -522,12 +524,45 @@ class StatusServer:
             self._thread = None
 
     def status_document(self) -> dict:
-        """The ``/status`` JSON: the pushed fields, the time, and the
-        SLO tracker's summary when one is installed."""
+        """The ``/status`` JSON: the pushed fields, the time, the SLO
+        tracker's summary when one is installed, and the liveness
+        views recomputed for this request when the run registered a
+        ``fleet`` or a ``cluster`` section."""
+        from repic_tpu_torch.runtime.cluster import read_liveness
+
         doc = get_status()
         doc["ts"] = time.time()
         if _SLO is not None:
             doc["slo"] = _SLO.summary()
+        fleet = doc.get("fleet")
+        if isinstance(fleet, dict) and fleet.get("fleet_dir"):
+            try:
+                view = read_liveness(
+                    fleet["fleet_dir"],
+                    float(fleet.get("replica_timeout_s", 10.0)),
+                )
+                doc["fleet"] = dict(fleet, replicas={
+                    r: {"rung": st.rung,
+                        "age_s": (None if st.age_s is None
+                                  else round(st.age_s, 3))}
+                    for r, st in view.items()
+                })
+            except Exception:  # noqa: BLE001 - a scrape never raises
+                pass
+        cluster = doc.get("cluster")
+        if isinstance(cluster, dict) and cluster.get("coordination_dir"):
+            try:
+                view = read_liveness(
+                    cluster["coordination_dir"],
+                    float(cluster.get("host_timeout_s", 10.0)),
+                )
+                doc["cluster"] = dict(cluster, hosts={
+                    h: {"rung": st.rung, "age_s": st.age_s,
+                        "lease": len(st.lease_names)}
+                    for h, st in view.items()
+                })
+            except Exception:  # noqa: BLE001 - a scrape never raises
+                pass
         return doc
 
     def __enter__(self) -> "StatusServer":

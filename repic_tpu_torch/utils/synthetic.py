@@ -364,19 +364,34 @@ JOURNAL_RECORD_KEYS = ("status", "solver", "particles", "out", "stage")
 JOURNAL_ERROR_KEYS = ("type", "kind", "path")
 
 
+def dispatch_view(e: dict) -> dict:
+    """A ``chunk_dispatches`` event as two packages compare it: its
+    fields, the ``entry`` without its package (``repic_tpu.`` or
+    ``repic_tpu_torch.``), the count reduced to whether it is a
+    positive int (each package counts its own launches and fetches),
+    the trace id to its presence."""
+    out = {k: v for k, v in e.items() if k not in ("ts", "trace")}
+    out["entry"] = str(out.get("entry", "")).split(".", 1)[-1]
+    d = out.get("dispatches")
+    out["dispatches"] = isinstance(d, int) and d > 0
+    out["trace"] = "trace" in e
+    return out
+
+
 def journal_view(out_dir: str, root: str | None = None) -> dict:
     """A run's ``_journal.jsonl`` as two packages or two machines
     compare it: each micrograph's records in order (projected to
     :data:`JOURNAL_RECORD_KEYS` and the error's
     :data:`JOURNAL_ERROR_KEYS`, the error's path relative to ``root``
-    when given, and whether it carries a ``trace`` id), and the ladder
+    when given, and whether it carries a ``trace`` id); the ladder
     events, clocks dropped and the trace id reduced to its presence, as
     sorted JSON strings -- the prefetch worker and the consumer write
-    them from two threads.  The reference's ``chunk_dispatches`` events
-    (its dispatch checker) are left out."""
+    them from two threads; and the ``chunk_dispatches`` events in
+    order, by :func:`dispatch_view` (one thread writes them, chunk by
+    chunk)."""
     from repic_tpu_torch.runtime.journal import read_journal
 
-    records, events = {}, []
+    records, events, dispatches = {}, [], []
     for e in read_journal(out_dir):
         if "name" in e:
             r = {k: e.get(k) for k in JOURNAL_RECORD_KEYS}
@@ -388,11 +403,14 @@ def journal_view(out_dir: str, root: str | None = None) -> dict:
             r["error"] = err
             r["trace"] = "trace" in e
             records.setdefault(e["name"], []).append(r)
-        elif e.get("event") != "chunk_dispatches":
+        elif e.get("event") == "chunk_dispatches":
+            dispatches.append(dispatch_view(e))
+        else:
             ev = {k: v for k, v in e.items() if k not in ("ts", "trace")}
             ev["trace"] = "trace" in e
             events.append(json.dumps(ev, sort_keys=True))
-    return {"records": records, "events": sorted(events)}
+    return {"records": records, "events": sorted(events),
+            "dispatches": dispatches}
 
 
 def trace_view(out_dir: str, late_compile: bool = True) -> list:
@@ -441,8 +459,8 @@ def telemetry_view(out_dir: str) -> dict:
     * ``spans``: ``"name<parent"`` (the parent span's name, or
       nothing) -> count, from ``_events.jsonl``;
     * ``trace``: :func:`trace_view`;
-    * ``journal``: per micrograph, and per ladder event, whether each
-      record carries a ``trace`` id."""
+    * ``journal``: per micrograph, and per event (``chunk_dispatches``
+      included), whether each record carries a ``trace`` id."""
     from repic_tpu_torch.runtime.journal import read_journal
     from repic_tpu_torch.telemetry.events import read_events
     from repic_tpu_torch.telemetry.sinks import read_metrics_json
@@ -470,7 +488,7 @@ def telemetry_view(out_dir: str) -> dict:
         if "name" in e:
             journal["records"].setdefault(e["name"], []).append(
                 "trace" in e)
-        elif e.get("event") != "chunk_dispatches":
+        else:
             journal["events"].append([e["event"], "trace" in e])
     journal["events"].sort()
     return {"metrics": metrics, "spans": dict(sorted(span_counts.items())),

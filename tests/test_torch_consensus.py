@@ -226,12 +226,21 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 # the training half and the iterative loop
                 "models/data.py", "models/train.py", "commands/fit.py",
                 "pipeline/pickers.py", "pipeline/iterative.py",
-                "commands/iter_config.py", "commands/iter_pick.py"):
+                "commands/iter_config.py", "commands/iter_pick.py",
+                # the cluster runtime, the mesh and process group, the
+                # serving fleet and its supervisor
+                "runtime/__init__.py", "runtime/cluster.py",
+                "runtime/journal.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/distributed.py",
+                "pipeline/__init__.py", "solver/__init__.py",
+                "ops/__init__.py", "serve/fleet.py", "commands/fleet.py",
+                "commands/consensus.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_cuda.py",
-        "tests/torch_port_common.py", "tests/torch_serve_common.py")]
+        "tests/torch_port_common.py", "tests/torch_serve_common.py",
+        "tests/torch_cluster_worker.py")]
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):

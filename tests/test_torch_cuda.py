@@ -417,7 +417,7 @@ def test_engine_with_prefetch_gives_the_cpu_bytes(cuda_device, tmp_path,
         assert st["chunks"] == 3
         runs[label] = (_box_bytes(out), [
             (e["name"], e["status"], e["particles"])
-            for e in read_journal(out)])
+            for e in read_journal(out) if "name" in e])
     assert runs["on"] == runs["cpu"] and runs["off"] == runs["cpu"]
     assert len(runs["cpu"][0]) == 12
 
@@ -893,3 +893,94 @@ def test_fit_on_card_repeats_its_bits(cuda_device, tmp_path):
         np.testing.assert_array_equal(again[k], v, err_msg=k)
     assert runs[0].history == runs[1].history
     assert runs[0].best_val_error <= 10.0
+
+
+# -- the cluster runtime and the serving fleet on the card ------------
+
+
+@pytest.mark.cuda
+def test_two_host_cluster_on_card_gives_the_golden_bytes(cuda_device,
+                                                         tmp_path):
+    """Two ``consensus --coordination-dir`` host processes on ``cuda:0``
+    over one output directory, fused in chunks of 2: the 10017 BOX
+    files equal the JAX golden, each host journaled its share with
+    ``chunk_dispatches`` events, and kernels 2 and 3 launched in each."""
+    import json
+    import subprocess
+    import sys
+
+    from repic_tpu_torch.runtime.journal import DONE_STATUSES, merged_latest
+
+    out = str(tmp_path / "o")
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=REPO, REPIC_CONSENSUS_CHUNK="2",
+                   REPIC_TPU_HOST_ID=f"h{rank}", REPIC_TPU_HOST_RANK=str(rank),
+                   REPIC_TPU_NUM_HOSTS="2", REPIC_TPU_NO_CONFIG_CACHE="1")
+        env.pop("REPIC_TPU_FAULTS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repic_tpu_torch", "consensus", EXAMPLES,
+             out, "180", "--solver", "lp_device_fused", "--coordination-dir",
+             out], env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    stats = []
+    for p in procs:
+        so, se = p.communicate(timeout=300)
+        assert p.returncode == 0, se[-2000:]
+        stats.append(json.loads(so.strip().splitlines()[-1]))
+    gold = os.path.join(GOLDEN_DIR, "lp_device_fused")
+    for f in os.listdir(gold):
+        with open(os.path.join(gold, f), "rb") as a, \
+                open(os.path.join(out, f), "rb") as b:
+            assert a.read() == b.read(), f
+    merged = merged_latest(out)
+    assert len(merged) == 12
+    assert all(e["status"] in DONE_STATUSES for e in merged.values())
+    for rank, st in enumerate(stats):
+        assert st["device"].startswith("cuda")
+        assert st["launches"]["fused_clique_candidates"] >= 1
+        assert st["launches"]["fused_dual_solve"] >= 1
+        ev = [e for e in _host_events(out, f"h{rank}")
+              if e.get("event") == "chunk_dispatches"]
+        assert ev and all(e["dispatches"] >= 3 for e in ev)
+
+
+def _host_events(out, host):
+    from repic_tpu_torch.runtime.journal import _read_entries
+
+    return _read_entries(os.path.join(out, f"_journal.{host}.jsonl"))
+
+
+@pytest.mark.cuda
+def test_one_replica_fleet_job_on_card(cuda_device, tmp_path):
+    """A one-replica fleet (``fleet_dir``) on ``cuda`` serves 10017
+    fused: the golden artifacts, one completion token, no lease left
+    after the drain, and the kernels' launches on ``/status``."""
+    import json
+
+    from repic_tpu_torch.serve.daemon import ConsensusDaemon
+    from repic_tpu_torch.serve.fleet import FleetMember
+    from repic_tpu_torch.utils.synthetic import file_sha256
+    from torch_serve_common import artifact_digests, req, run_job
+
+    fleet = str(tmp_path / "fleet")
+    d = ConsensusDaemon(str(tmp_path / "wd"), port=0, warmup=False,
+                        device="cuda", fleet_dir=fleet, replica_id="r1",
+                        heartbeat_interval_s=0.2, replica_timeout_s=1.0)
+    d.start()
+    try:
+        doc = run_job(d.server.port, {
+            "in_dir": EXAMPLES, "box_size": 180,
+            "options": {"use_mesh": False, "solver": "lp_device_fused"}},
+            timeout=300)
+        assert doc["state"] == "finished" and doc["replica"] == "r1", doc
+        gold = os.path.join(GOLDEN_DIR, "lp_device_fused")
+        assert artifact_digests(d.server.port, doc["id"]) == {
+            f: file_sha256(os.path.join(gold, f)) for f in os.listdir(gold)}
+        assert os.path.exists(os.path.join(fleet, f"_done.{doc['id']}.json"))
+        status = json.loads(req(d.server.port, "GET", "/status")[2])
+        assert status["fleet"]["replicas"]["r1"]["rung"] == "live"
+        assert status["launches"]["fused_clique_candidates"] >= 1
+    finally:
+        d.drain()
+    assert FleetMember(fleet, "probe").orphaned_leases() == []

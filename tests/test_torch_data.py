@@ -58,13 +58,14 @@ def test_load_dataset_bitwise(fixture_dirs, split, seed):
 
 def test_global_patch_norm_close(fixture_dirs):
     """``patch_norm="global"`` resizes the z-scored floats without the
-    uint8 levels, and the upsampling's sums round apart from XLA's by an
-    ulp: within 1e-6, labels equal."""
+    uint8 levels; the upsampling sums in XLA's CPU order
+    (``preprocess.resize_images(ordered=True)``), so the patches equal
+    JAX's bit for bit, labels too."""
     got = tdata.load_dataset(*fixture_dirs["val"], PARTICLE,
                              patch_norm="global", device="cpu")
     want = jdata.load_dataset(*fixture_dirs["val"], PARTICLE,
                               patch_norm="global")
-    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
 

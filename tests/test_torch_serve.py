@@ -417,7 +417,8 @@ def test_deadline_fault_cancels_at_chunk_boundary(prefetch, tmp_path,
     assert states == ["queued", "running", "deadline_exceeded"]
     # the first boundary fired: nothing emitted, nothing journaled
     assert port[2]["boxes"] == {}
-    assert port[2]["journal"] == {"records": {}, "events": []}
+    assert port[2]["journal"] == {"records": {}, "events": [],
+                                  "dispatches": []}
 
 
 @pytest.mark.parametrize("prefetch", ["on", "off"])

@@ -294,19 +294,27 @@ def test_serve_help_lists_the_reference_flags_and_device():
                  "--breaker-cooldown", "--no-warmup", "--scheduler",
                  "--max-open", "--compile-cache", "--warmup-bucket",
                  "--tenants", "--reassign-budget", "--slo-target",
-                 "--device"):
+                 "--device", "--fleet-dir", "--replica-id",
+                 "--heartbeat-interval", "--replica-timeout"):
         assert flag in flags, flag
-    for flag in ("--fleet-dir", "--replica-id", "--heartbeat-interval",
-                 "--replica-timeout"):
-        assert flag not in flags, flag
     args = parser.parse_args(["serve", "wd"])
     assert args.device == "cuda"
 
 
 def test_fleet_dir_is_refused_not_run_single(tmp_path):
-    with pytest.raises(ValueError, match="fleet mode is not ported"):
-        new_daemon("port", str(tmp_path / "wd"),
-                   fleet_dir=str(tmp_path / "fleet"))
+    """``fleet_dir`` is never silently run as a single daemon: it makes
+    the daemon a fleet replica (the fleet's queue and journal in the
+    fleet directory, its jobs under ``<fleet_dir>/jobs``)."""
+    from repic_tpu_torch.serve.fleet import FleetQueue
+
+    d = new_daemon("port", str(tmp_path / "wd"),
+                   fleet_dir=str(tmp_path / "fleet"), replica_id="r0")
+    try:
+        assert d.fleet is not None and d.fleet.replica == "r0"
+        assert isinstance(d.queue, FleetQueue)
+        assert d.job_dir("j").startswith(str(tmp_path / "fleet"))
+    finally:
+        d.journal.close()
 
 
 def test_cuda_daemon_without_a_card_raises_before_binding(tmp_path):
