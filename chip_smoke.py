@@ -45,7 +45,7 @@ Phases, each fatal on failure:
    ``greedy`` on the golden micrographs and hold every BOX file's
    sha256, row count and clique count to the JAX digests
    (``tests/golden/torch_port_digests.json``); then a warm pass over
-   the configuration's :data:`STRESS_WARM` = 128 micrographs with
+   :data:`STRESS_WARM` = 64 of the configuration's 128 micrographs with
    its load / compute / write split, micrographs per second, accepted
    capacities, peak device memory and, in a profiled run of the golden
    directory, the device's busy share;
@@ -57,7 +57,7 @@ Phases, each fatal on failure:
    1 at this chunk's shape (M = 16, K = 5, N = 768, the accepted d, the
    per-picker sizes as device views) against its plain version, with
    its time, device time and bound; then a warm pass over the
-   configuration's :data:`K5_WARM` = 1,024 micrographs;
+   :data:`K5_WARM` = 512 of the configuration's 1,024 micrographs;
 8. the rest of the flags, through the CLI's parser and commands in this
    process (the escalation memo cleared and the launch counts set to 0
    before each run), each output file held to the JAX digests
@@ -199,7 +199,27 @@ Phases, each fatal on failure:
    ``synthetic_256`` fused in this process with ``use_mesh=True`` over
    ``consensus_mesh()`` (the card count is printed: one card here, so
    a split over several cards is not exercised), its bytes equal to
-   phase 4's.
+   phase 4's;
+15. the gang and the runtime sanitizers: (a) ``consensus --gang`` as
+   one process on ``synthetic_256``, fused and ``lp_device --pallas``:
+   phase 4's bytes, every kernel of the setting launched, no chunk
+   demoted, the wall; (b) a :data:`GANG_WORLD`-process gang on
+   ``cuda:0`` from torchrun's variables (gloo collectives, fused,
+   global chunks of :data:`GANG_CHUNK`), the victim dying through
+   ``gang_peer_crash`` at its second chunk's collective (exit 27): the
+   survivors classify ``peer_dead``, fence it, re-form a two-process
+   gang and finish with phase 4's bytes, 0 lost and 0 written twice,
+   ``report``'s gang section; the crash-to-re-formation seconds and
+   each process's wall; (c) KERNELCHECK on the card over the three
+   kernels' ladders (0 violations, and a flip planted in kernel 3's
+   output recorded), DISPATCHCHECK over a fused and a ``--pallas`` run
+   of ``synthetic_256`` (every window within budget; the largest per
+   entry), LOCKCHECK armed from its variable in a served 10017 job's
+   daemon process and a cluster run's process (0 cycles, 0 unguarded
+   writes, the package's module-level locks among the checked ones);
+   (d), run before (c), the same gang launched as the README says,
+   ``torchrun --nproc-per-node`` :data:`GANG_WORLD` on ``cuda:0``:
+   phase 4's bytes in one epoch.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -239,8 +259,9 @@ RUNTIME_DIGESTS = os.path.join(REPO, "tests", "golden",
 #: and 14 share the time limit)
 PREFETCH_PAIRS = 3
 #: warm runs per side of phase 10b's telemetry on/off comparison (10
-#: before phase 14 shared the time limit)
-TELEMETRY_PAIRS = 6
+#: before phase 14 shared the time limit, 6 before phase 15: the call
+#: at 6 ran 1,078.9 s of its 1,200 s on an H100 at 700 W)
+TELEMETRY_PAIRS = 4
 TELEMETRY_DIGESTS = os.path.join(REPO, "tests", "golden",
                                  "torch_port_telemetry_digests.json")
 SERVE_DIGESTS = os.path.join(REPO, "tests", "golden",
@@ -269,10 +290,11 @@ CLUSTER_CHUNK = 16
 FLEET_HB, FLEET_TIMEOUT = "0.2", "1.0"
 #: the device of phase 14's child processes: the entry points' default
 CHILD_DEVICE = "cuda"
-#: micrographs in the warm passes of the two dense configurations
-#: (each configuration's full count)
-STRESS_WARM = 128
-K5_WARM = 1024
+#: micrographs in the warm passes of the two dense configurations (half
+#: of each configuration's count since phase 15: the call with the full
+#: counts ran 1,078.9 s of its 1,200 s on an H100 at 700 W)
+STRESS_WARM = 64
+K5_WARM = 512
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM3 bytes/s,
 # and float32 instructions/s outside the tensor cores.  The data sheet's
@@ -3064,6 +3086,427 @@ def phase_mesh(synth, phase4_outs):
             "chunk": st["chunk"], "launches": counts}
 
 
+# -- phase 15: the gang and the runtime sanitizers ---------------------
+
+#: phase 15b's gang: processes, global micrographs per chunk, the victim
+GANG_WORLD = 3
+GANG_CHUNK = 32
+GANG_VICTIM = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _last_json(text: str):
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    return None
+
+
+def phase_gang_of_one(synth, phase4_outs):
+    """Phase 15a: ``consensus --gang`` as one process on the 256 set,
+    fused and ``--pallas``: phase 4's bytes, every kernel of the
+    setting launched, no chunk demoted."""
+    rep = {}
+    for setting, flags, need in (
+        ("lp_device_fused", ["--solver", "lp_device_fused"],
+         ("fused_clique_candidates", "fused_dual_solve")),
+        ("lp_device_pallas", ["--solver", "lp_device", "--pallas"],
+         ("topk_neighbors",)),
+    ):
+        out = os.path.join(WORK, "gang1_" + setting)
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repic_tpu_torch", "consensus", synth,
+             out, str(BOX), "--gang", *flags], cwd=REPO, env=_child_env(),
+            capture_output=True, text=True, timeout=600)
+        wall = time.time() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 15a {setting}: exit "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        st = _last_json(proc.stdout)
+        n = _same_boxes(f"phase 15a {setting}", out, phase4_outs[setting])
+        _need_launches(f"phase 15a {setting}", st["launches"], need)
+        if st["demotions"] or st["gang"]["faults"] or \
+                st["gang"]["mode"] != "gang":
+            raise AssertionError(f"phase 15a {setting}: demotions "
+                                 f"{st['demotions']}, gang {st['gang']}")
+        shutil.rmtree(out, ignore_errors=True)
+        rep[setting] = {"wall_s": wall, "launches": st["launches"],
+                        "chunks": st["chunks"], "gang": st["gang"],
+                        "compute_s": st["compute_s"]}
+        log(f"phase 15a: gang of one, {setting}: {n} BOX files equal "
+            f"phase 4's; {st['chunks']} chunks, no demotion; wall "
+            f"{wall:.2f}s (process), compute {st['compute_s']:.3f}s; "
+            f"launches {st['launches']}")
+    return rep
+
+
+def phase_gang_chaos(synth, phase4_outs):
+    """Phase 15b: a three-process gang on ``cuda:0`` (torchrun's
+    variables, gloo collectives, fused, global chunks of
+    :data:`GANG_CHUNK`); the victim dies through ``gang_peer_crash`` at
+    its second chunk's collective; the survivors re-form and finish
+    with phase 4's bytes."""
+    from repic_tpu_torch.parallel.gang import GANG_CRASH_EXIT_CODE
+    from repic_tpu_torch.runtime.journal import (
+        DONE_STATUSES, merged_latest, read_all_journals,
+    )
+    from repic_tpu_torch.telemetry.report import build_report
+
+    out = os.path.join(WORK, "gang3")
+    os.makedirs(out, exist_ok=True)
+    port = _free_port()
+    procs = []
+    for rank in range(GANG_WORLD):
+        env = _child_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                         WORLD_SIZE=GANG_WORLD, RANK=rank, LOCAL_RANK=0,
+                         REPIC_TPU_HOST_ID=f"g{rank}",
+                         REPIC_TPU_HOST_RANK=rank,
+                         REPIC_TPU_NUM_HOSTS=GANG_WORLD,
+                         REPIC_CONSENSUS_CHUNK=GANG_CHUNK)
+        if rank == GANG_VICTIM:
+            env["REPIC_TPU_FAULTS"] = "gang_peer_crash:gchunk:1:1:1"
+        cmd = [sys.executable, "-m", "repic_tpu_torch", "consensus", synth,
+               out, str(BOX), "--solver", "lp_device_fused", "--gang",
+               "--coordination-dir", out, "--heartbeat-interval", "0.2",
+               "--host-timeout", "2", "--gang-watchdog-floor", "1",
+               "--gang-watchdog-factor", "3", "--gang-reform-timeout", "60",
+               "--device", CHILD_DEVICE]
+        log_path = os.path.join(OUT, f"phase15b_g{rank}.log")
+        fh = open(log_path, "w")
+        procs.append((subprocess.Popen(cmd, stdout=fh, stderr=fh, env=env,
+                                       cwd=REPO), time.time(), fh,
+                      log_path))
+    ends = {}
+    try:
+        deadline = time.time() + 300
+        while len(ends) < len(procs):
+            if time.time() > deadline:
+                raise AssertionError("phase 15b: gang still running "
+                                     "after 300 s")
+            for i, (proc, _t, _fh, _p) in enumerate(procs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.time()
+            time.sleep(0.02)
+    finally:
+        for proc, _t, fh, _p in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+    results = []
+    for i, (proc, t0, _fh, log_path) in enumerate(procs):
+        with open(log_path) as f:
+            text = f.read()
+        results.append((proc.returncode, _last_json(text), ends[i] - t0,
+                        text[-3000:]))
+    rc_victim = results[GANG_VICTIM][0]
+    if rc_victim != GANG_CRASH_EXIT_CODE:
+        raise AssertionError(f"phase 15b: victim exited {rc_victim}: "
+                             f"{results[GANG_VICTIM][3]}")
+    survivors = [r for r in range(GANG_WORLD) if r != GANG_VICTIM]
+    for rank in survivors:
+        rc, st, _w, tail = results[rank]
+        if rc != 0 or st is None:
+            raise AssertionError(f"phase 15b: survivor g{rank} exited "
+                                 f"{rc}: {tail}")
+        if st["gang"]["faults"] < 1 or st["gang"]["mode"] != "gang":
+            raise AssertionError(f"phase 15b: survivor g{rank}: "
+                                 f"{st['gang']}")
+        _need_launches(f"phase 15b survivor g{rank}", st["launches"],
+                       ("fused_clique_candidates", "fused_dual_solve"))
+        if st["demotions"]:
+            raise AssertionError(f"phase 15b: g{rank} demoted "
+                                 f"{st['demotions']} chunks")
+    entries = read_all_journals(out)
+    events = [e for e in entries if "event" in e]
+    faults_ = [e for e in events if e["event"] == "gang_fault"]
+    reformed = [e for e in events if e["event"] == "gang_reformed"]
+    victim = f"g{GANG_VICTIM}"
+    if not faults_ or any(e.get("kind") != "peer_dead"
+                          or e.get("dead") != [victim] for e in faults_):
+        raise AssertionError(f"phase 15b: faults {faults_}")
+    if {e["host"] for e in faults_} != {f"g{r}" for r in survivors}:
+        raise AssertionError(f"phase 15b: fault hosts {faults_}")
+    if not reformed or any(e["world"] != GANG_WORLD - 1
+                           or victim in e["members"] for e in reformed):
+        raise AssertionError(f"phase 15b: re-formations {reformed}")
+    if not os.path.exists(os.path.join(out, f"_fence.{victim}.json")):
+        raise AssertionError("phase 15b: the victim was not fenced")
+    merged = merged_latest(out)
+    names = sorted(f[:-4] for f in os.listdir(phase4_outs[
+        "lp_device_fused"]) if f.endswith(".box"))
+    lost = [n for n in names if merged.get(n, {}).get("status")
+            not in DONE_STATUSES]
+    ok_records = {}
+    for e in entries:
+        if "name" in e and e.get("status") in DONE_STATUSES:
+            ok_records[e["name"]] = ok_records.get(e["name"], 0) + 1
+    twice = sorted(n for n, c in ok_records.items() if c > 1)
+    if lost or twice or len(merged) != len(names):
+        raise AssertionError(f"phase 15b: lost {lost[:5]}, written twice "
+                             f"{twice[:5]}, merged {len(merged)}")
+    n = _same_boxes("phase 15b", out, phase4_outs["lp_device_fused"])
+    report = build_report(out)["gang"]
+    if (report["faults"] != len(survivors)
+            or len({e["gang_epoch"] for e in faults_}) != 1
+            or report["reformations"] < 1 or report["degraded"]
+            or report["final_epoch"] != max(e["gang_epoch"]
+                                            for e in reformed)):
+        raise AssertionError(f"phase 15b: report gang section {report}")
+    crash_to_reform = min(e["ts"] for e in reformed) - ends[GANG_VICTIM]
+    walls = {f"g{r}": results[r][2] for r in range(GANG_WORLD)}
+    launches = {k: sum(results[r][1]["launches"][k] for r in survivors)
+                for k in results[survivors[0]][1]["launches"]}
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 15b: {GANG_WORLD}-process gang on cuda:0 (gloo), fused, "
+        f"chunks of {GANG_CHUNK}: g{GANG_VICTIM} died at its second "
+        f"chunk's collective (exit {rc_victim}); both survivors classified "
+        f"peer_dead, fenced it and re-formed a {GANG_WORLD - 1}-process "
+        f"gang; {n} BOX files equal phase 4's, 0 lost, 0 written twice; "
+        f"report gang: faults {report['faults']} (one fault, epoch "
+        f"{faults_[0]['gang_epoch']}, journaled by each survivor), "
+        f"reformations {report['reformations']}, final epoch "
+        f"{report['final_epoch']}; crash to re-formation "
+        f"{crash_to_reform:.2f}s; walls "
+        + ", ".join(f"{h} {w:.2f}s" for h, w in walls.items())
+        + f"; survivors' launches {launches}")
+    return {"crash_to_reform_s": crash_to_reform, "walls_s": walls,
+            "report": report, "launches": launches}
+
+
+def phase_gang_torchrun(synth, phase4_outs):
+    """Phase 15d: the gang as the README launches it, ``torchrun
+    --nproc-per-node`` :data:`GANG_WORLD` on ``cuda:0`` (the agent's own
+    store at ``MASTER_PORT``, which the gang's first epoch joins),
+    fused, uninterrupted: phase 4's bytes, one epoch, no fault."""
+    import glob
+
+    out = os.path.join(WORK, "gang_torchrun")
+    logs = os.path.join(WORK, "gang_torchrun_logs")
+    t = time.time()
+    # each rank's standard output to a file of its own: the ranks' long
+    # result lines must not interleave
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(GANG_WORLD), "--master-addr", "127.0.0.1", "--master-port",
+         str(_free_port()), "--log-dir", logs, "--redirects", "1",
+         "-m", "repic_tpu_torch", "consensus", synth, out,
+         str(BOX), "--solver", "lp_device_fused", "--gang",
+         "--gang-reform-timeout", "60"],
+        cwd=REPO, env=_child_env(REPIC_CONSENSUS_CHUNK=GANG_CHUNK),
+        capture_output=True, text=True, timeout=300)
+    wall = time.time() - t
+    stats = []
+    for path in sorted(glob.glob(os.path.join(logs, "**", "stdout.log"),
+                                 recursive=True)):
+        with open(path) as f:
+            st = _last_json(f.read())
+        if st is not None:
+            stats.append(st)
+    with open(os.path.join(OUT, "phase15d_torchrun.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or len(stats) != GANG_WORLD:
+        raise AssertionError(f"phase 15d: torchrun exit {proc.returncode}, "
+                             f"{len(stats)} results: {proc.stderr[-3000:]}")
+    for st in stats:
+        g = st["gang"]
+        if (g["world"], g["mode"], g["faults"], g["epoch"]) != \
+                (GANG_WORLD, "gang", 0, 1) or st["demotions"]:
+            raise AssertionError(f"phase 15d: rank {g['rank']}: {g}, "
+                                 f"demotions {st['demotions']}")
+    launches = {k: sum(st["launches"][k] for st in stats)
+                for k in stats[0]["launches"]}
+    _need_launches("phase 15d", launches,
+                   ("fused_clique_candidates", "fused_dual_solve"))
+    n = _same_boxes("phase 15d", out, phase4_outs["lp_device_fused"])
+    for path in (out, logs):
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"phase 15d: torchrun --nproc-per-node {GANG_WORLD} on cuda:0, "
+        f"fused: {n} BOX files equal phase 4's, ranks "
+        f"{sorted(st['gang']['rank'] for st in stats)} in one epoch, no "
+        f"fault; wall {wall:.2f}s (launcher); launches {launches}")
+    return {"wall_s": wall, "launches": launches}
+
+
+def phase_sanitizers(synth, phase4_outs):
+    """Phase 15c: KERNELCHECK over the three kernels' ladders on the
+    card (and a planted divergence caught), DISPATCHCHECK over a fused
+    and a ``--pallas`` run of the 256 set, LOCKCHECK armed from its
+    variable in a served 10017 job's daemon process and in a cluster
+    run's process."""
+    import dataclasses
+
+    from repic_tpu_torch.analysis import (
+        contracts, dispatchcheck, kernelcheck,
+    )
+    from repic_tpu_torch.pipeline import consensus
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_serve_common import run_job, spawn, stop
+
+    rep = {}
+    # KERNELCHECK on the card
+    with kernelcheck.scoped():
+        kernelcheck.reset()
+        kernelcheck.install()
+        t = time.time()
+        probed = kernelcheck.run_registered(device="cuda")
+        k_s = time.time() - t
+        clean = kernelcheck.violations()
+        rungs = sum(len(e.contract.kernel.ladder)
+                    for e in contracts.registry().values()
+                    if e.contract.kernel is not None)
+        if probed != 3 or clean:
+            raise AssertionError(f"phase 15c: KERNELCHECK probed {probed}: "
+                                 + kernelcheck.report_text())
+        # a divergence planted in this phase only: one valid slot of
+        # kernel 3's output flipped
+        entry = contracts.registry()[
+            "repic_tpu_torch.ops.megakernel.fused_dual_solve"]
+        contract, kc = entry.contract, entry.contract.kernel
+
+        def perturbed(*args):
+            picked = kc.run(*args).clone()
+            slot = int(args[2].nonzero()[0])
+            picked[slot] = ~picked[slot]
+            return picked
+
+        entry.contract = dataclasses.replace(
+            contract, kernel=dataclasses.replace(kc, run=perturbed))
+        try:
+            kernelcheck.run_registered(("repic_tpu_torch.ops.megakernel",),
+                                       device="cuda")
+        finally:
+            entry.contract = contract
+        planted = [v for v in kernelcheck.violations()
+                   if v["kind"] == "kernel-divergence"]
+        if len(planted) != len(kc.ladder):
+            raise AssertionError("phase 15c: the planted divergence: "
+                                 + kernelcheck.report_text())
+    log(f"phase 15c: KERNELCHECK on cuda: {probed} kernels, {rungs} ladder "
+        f"rungs against their unfused paths, 0 violations ({k_s:.2f}s); "
+        f"the planted flip in kernel 3 recorded on all {len(planted)} of "
+        f"its rungs: {planted[0]['detail']}")
+    rep["kernelcheck"] = {"kernels": probed, "rungs": rungs, "seconds": k_s,
+                          "planted_recorded": len(planted)}
+    # DISPATCHCHECK over the 256 set, fused and --pallas
+    rep["dispatchcheck"] = {}
+    for setting, solver, pallas in (
+        ("lp_device_fused", "lp_device_fused", False),
+        ("lp_device_pallas", "lp_device", True),
+    ):
+        out = os.path.join(WORK, "dispatch_" + setting)
+        with dispatchcheck.scoped():
+            dispatchcheck.reset()
+            dispatchcheck.install()
+            clear_memo()
+            consensus.run_consensus_dir(synth, out, BOX, solver=solver,
+                                        use_pallas=pallas, device="cuda")
+            wins = dispatchcheck.windows()
+            bad = dispatchcheck.violations()
+        _same_boxes(f"phase 15c dispatch {setting}", out,
+                    phase4_outs[setting])
+        shutil.rmtree(out, ignore_errors=True)
+        if bad or not wins:
+            raise AssertionError(f"phase 15c: DISPATCHCHECK {setting}: "
+                                 f"{bad or 'no windows'}")
+        largest = {}
+        for w in wins:
+            e = w["entry"].rsplit(".", 1)[-1]
+            largest[e] = max(largest.get(e, 0), w["dispatches"])
+        budgets = {w["entry"].rsplit(".", 1)[-1]: w["budget"] for w in wins}
+        rep["dispatchcheck"][setting] = {"windows": len(wins),
+                                         "largest": largest,
+                                         "budgets": budgets}
+        log(f"phase 15c: DISPATCHCHECK, 256 set {setting}: {len(wins)} "
+            f"chunk windows within budget; largest window per entry "
+            f"{largest} (budgets {budgets})")
+    # LOCKCHECK over a served job and a cluster run, each a CLI process
+    # armed from the variable before the package's imports, so its
+    # module-level locks are checked too
+    module_locks = _module_lock_sites()
+    need = {site for site in module_locks if site.rsplit(":", 1)[0] in (
+        "repic_tpu_torch.telemetry.server", "repic_tpu_torch.runtime.faults",
+        "repic_tpu_torch._build")}
+    rep["lockcheck"] = {}
+    wd = os.path.join(WORK, "lockcheck_serve")
+    os.makedirs(wd, exist_ok=True)
+    proc, port = spawn("port", wd, {"REPIC_TPU_LOCKCHECK": "1"},
+                       timeout=120, device=None)
+    try:
+        doc = run_job(port, {"in_dir": EXAMPLES, "box_size": BOX,
+                             "options": {"use_mesh": False,
+                                         "solver": "lp_device_fused"}},
+                      timeout=300)
+        proc.send_signal(signal.SIGTERM)
+        text = proc.communicate(timeout=120)[0]
+    finally:
+        stop(proc)
+    if doc["state"] != "finished":
+        raise AssertionError(f"phase 15c: LOCKCHECK serve job {doc}")
+    runs = {"serve": (proc.returncode, text)}
+    out = os.path.join(WORK, "lockcheck_cluster")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repic_tpu_torch", "consensus", synth, out,
+         str(BOX), "--solver", "lp_device_fused", "--coordination-dir", out,
+         "--heartbeat-interval", "0.2", "--host-timeout", "2.0"],
+        cwd=REPO, env=_child_env(REPIC_TPU_LOCKCHECK=1),
+        capture_output=True, text=True, timeout=600)
+    runs["cluster"] = (proc.returncode, proc.stderr)
+    _same_boxes("phase 15c lockcheck cluster", out,
+                phase4_outs["lp_device_fused"])
+    for path in (wd, out):
+        shutil.rmtree(path, ignore_errors=True)
+    for run, (rc, text) in runs.items():
+        lines = text.splitlines()
+        sites = set()
+        for line in lines:
+            if line.startswith("LOCKCHECK checked lock sites"):
+                sites = set(line.split(": ", 1)[1].split(", "))
+        if rc != 0 or "LOCKCHECK: no violations" not in lines \
+                or not need <= sites:
+            raise AssertionError(
+                f"phase 15c: LOCKCHECK {run}: exit {rc}, module-level "
+                f"sites missing {sorted(need - sites)}:\n" + text[-3000:])
+        rep["lockcheck"][run] = {
+            "sites": len(sites),
+            "module_level": sorted(sites & module_locks)}
+        log(f"phase 15c: LOCKCHECK armed from the variable over the "
+            f"{run} run (a cuda CLI process): {len(sites)} checked lock "
+            f"sites, {len(sites & module_locks)} of the package's "
+            f"{len(module_locks)} module-level ones among them "
+            f"{sorted(sites & module_locks)}, 0 cycles, 0 unguarded "
+            "writes")
+    return rep
+
+
+def _module_lock_sites() -> set:
+    """``module:line`` of every module-level lock of the package."""
+    found = set()
+    root = os.path.join(REPO, "repic_tpu_torch")
+    for dirpath, _dirs, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            mod = os.path.relpath(path[:-3], REPO).replace(os.sep, ".")
+            mod = mod[:-len(".__init__")] if mod.endswith(".__init__") \
+                else mod
+            with open(path) as f:
+                for i, line in enumerate(f, 1):
+                    if re.match(r"_?\w+ = threading\.R?Lock\(\)", line):
+                        found.add(f"{mod}:{i}")
+    return found
+
+
 def passes(tree: str) -> int:
     """``--passes TREE``: time the directory runs of the port in ``TREE``
     (a checkout, such as the parent commit unpacked with ``git archive``)
@@ -3506,6 +3949,13 @@ def main() -> int:
                "fleet": timed("14b", phase_fleet, synth, outs),
                "mesh": timed("14c", phase_mesh, synth, outs)}
 
+    # -- phase 15: the gang and the runtime sanitizers ----------------
+    phase15 = {"gang_of_one": timed("15a", phase_gang_of_one, synth, outs),
+               "gang_chaos": timed("15b", phase_gang_chaos, synth, outs),
+               "gang_torchrun": timed("15d", phase_gang_torchrun, synth,
+                                      outs),
+               "sanitizers": timed("15c", phase_sanitizers, synth, outs)}
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -3543,12 +3993,24 @@ def main() -> int:
         entry["cluster_launches"] = phase14["cluster"]["launches"][
             entry["name"]]
         entry["fleet_launches"] = phase14["fleet"]["launches"][entry["name"]]
+        # launches in phase 15's gang processes (their own counters):
+        # the gang of one per setting, the chaos gang's survivors, the
+        # torchrun gang's ranks
+        entry["gang_launches"] = {
+            **{setting: r["launches"][entry["name"]]
+               for setting, r in phase15["gang_of_one"].items()},
+            "chaos_survivors": phase15["gang_chaos"]["launches"][
+                entry["name"]],
+            "torchrun": phase15["gang_torchrun"]["launches"].get(
+                entry["name"], 0),
+        }
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
               "phase9": phase9, "phase10": phase10, "phase11": phase11,
               "phase12": phase12, "phase13": phase13, "phase14": phase14,
+              "phase15": phase15,
               "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

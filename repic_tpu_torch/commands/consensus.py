@@ -1,5 +1,6 @@
-"""Directory consensus on this process's cards, or on one host of a
-cluster that shares the output directory (``--coordination-dir``).
+"""Directory consensus on this process's cards, on one host of a
+cluster that shares the output directory (``--coordination-dir``), or
+as one process of a gang (``--gang``).
 
 Reads ``IN_DIR/<picker>/*.box``, writes one consensus BOX file per
 micrograph into ``OUT_DIR`` (deleted first unless ``--resume``) — or,
@@ -137,19 +138,71 @@ def add_arguments(parser):
         "(default 10.0; requires --coordination-dir).  --strict "
         "fails fast on the first suspect host instead",
     )
-    # the collective gang's flags parse, and are refused in main: the
-    # gang is not ported (ROADMAP Queue 1 item 8b)
-    parser.add_argument("--gang", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 8b)")
-    for flag, typ in (("--gang-min-world", int),
-                      ("--gang-watchdog-factor", float),
-                      ("--gang-watchdog-floor", float),
-                      ("--gang-first-deadline", float),
-                      ("--gang-reform-timeout", float)):
-        parser.add_argument(flag, type=typ, default=None,
-                            help="not ported (requires --gang)")
-    parser.add_argument("--gang-no-degrade", action="store_true",
-                        help="not ported (requires --gang)")
+    parser.add_argument(
+        "--gang",
+        action="store_true",
+        help="gang-schedule the chunks across processes: every chunk "
+        "runs as one job over the gang, each process on its own rows "
+        "and its own card (identity from torchrun's MASTER_ADDR/"
+        "MASTER_PORT/WORLD_SIZE/RANK/LOCAL_RANK; a single process "
+        "forms a gang of one), the processes agreeing on capacities "
+        "and escalations through all-reduces on a gloo group.  Every "
+        "dispatch runs under a collective watchdog; a peer lost "
+        "mid-collective aborts the chunk, and survivors re-form a "
+        "smaller gang over the remaining work or degrade to "
+        "independent per-host execution.  Implies cluster semantics "
+        "over --coordination-dir (default: out_dir)",
+    )
+    parser.add_argument(
+        "--gang-min-world",
+        type=int,
+        default=None,
+        metavar="N",
+        help="below this surviving world size re-formation gives up "
+        "and survivors degrade to independent execution (default 1; "
+        "requires --gang)",
+    )
+    parser.add_argument(
+        "--gang-watchdog-factor",
+        type=float,
+        default=None,
+        metavar="F",
+        help="collective watchdog deadline = max(floor, F x decayed "
+        "per-chunk service time) (default 4.0; requires --gang)",
+    )
+    parser.add_argument(
+        "--gang-watchdog-floor",
+        type=float,
+        default=None,
+        metavar="S",
+        help="minimum watchdog deadline in seconds (default 10.0; "
+        "requires --gang)",
+    )
+    parser.add_argument(
+        "--gang-first-deadline",
+        type=float,
+        default=None,
+        metavar="S",
+        help="watchdog deadline for dispatches with no service-time "
+        "estimate yet or a program signature's first run ahead of "
+        "them (default 600.0; requires --gang)",
+    )
+    parser.add_argument(
+        "--gang-reform-timeout",
+        type=float,
+        default=None,
+        metavar="S",
+        help="seconds a survivor waits for the new epoch record and "
+        "its peers during gang re-formation, and the gang group's "
+        "collective timeout (default 60.0; requires --gang)",
+    )
+    parser.add_argument(
+        "--gang-no-degrade",
+        action="store_true",
+        help="fail the run when gang re-formation fails instead of "
+        "degrading to independent per-host execution (requires "
+        "--gang)",
+    )
     parser.add_argument(
         "--pallas",
         action="store_true",
@@ -220,13 +273,25 @@ def main(args):
     gang_flags = (args.gang_min_world, args.gang_watchdog_factor,
                   args.gang_watchdog_floor, args.gang_first_deadline,
                   args.gang_reform_timeout, args.gang_no_degrade or None)
+    gang = None
     if args.gang:
-        raise SystemExit(
-            "repic-tpu consensus: error: --gang (gang-scheduled "
-            "collective execution) is not ported yet; ROADMAP Queue 1 "
-            "item 8b.  Use --coordination-dir for multi-host runs"
-        )
-    if any(v is not None for v in gang_flags):
+        from repic_tpu_torch.parallel.gang import GangConfig
+
+        kwargs = {}
+        if args.gang_min_world is not None:
+            kwargs["min_world"] = args.gang_min_world
+        if args.gang_watchdog_factor is not None:
+            kwargs["watchdog_factor"] = args.gang_watchdog_factor
+        if args.gang_watchdog_floor is not None:
+            kwargs["watchdog_floor_s"] = args.gang_watchdog_floor
+        if args.gang_first_deadline is not None:
+            kwargs["first_deadline_s"] = args.gang_first_deadline
+        if args.gang_reform_timeout is not None:
+            kwargs["reform_timeout_s"] = args.gang_reform_timeout
+        if args.gang_no_degrade:
+            kwargs["allow_degrade"] = False
+        gang = GangConfig(**kwargs)
+    elif any(v is not None for v in gang_flags):
         raise SystemExit(
             "repic-tpu consensus: error: --gang-min-world/"
             "--gang-watchdog-factor/--gang-watchdog-floor/"
@@ -282,6 +347,7 @@ def main(args):
                 device=args.device,
                 use_mesh=not args.no_mesh,
                 cluster=cluster,
+                gang=gang,
             )
     stats["launches"] = launch_counts()
     stats["demotions"] = megakernel.DEMOTIONS

@@ -9,6 +9,11 @@ picker's ``pick`` and ``fit``, the
 iterative ensemble loop's ``iter_config`` and ``iter_pick``, and the
 host utilities ``convert``, ``score``, ``build_subsets`` and
 ``get_examples``.
+
+``REPIC_TPU_KERNELCHECK=1``, ``REPIC_TPU_DISPATCHCHECK=1`` and
+``REPIC_TPU_LOCKCHECK=1`` arm the runtime sanitizers
+(:mod:`repic_tpu_torch.analysis`) for the command: their reports go to
+stderr, and a violation makes the exit status 1.
 """
 
 import argparse
@@ -52,6 +57,24 @@ def build_parser():
     return parser
 
 
+def _arm_sanitizers(args) -> list:
+    """The runtime sanitizers their environment variables ask for:
+    LOCKCHECK and DISPATCHCHECK armed for the command (``python -m
+    repic_tpu_torch`` armed LOCKCHECK already, before its imports),
+    KERNELCHECK run now on the command's device: ``--device``, else the
+    card, so that a missing card is a violation and never a probe of
+    the plain versions against each other."""
+    from repic_tpu_torch.analysis import dispatchcheck, kernelcheck, lockcheck
+
+    armed = [m for m in (lockcheck, dispatchcheck)
+             if m.maybe_install_from_env()]
+    if kernelcheck.enabled():
+        kernelcheck.maybe_install_from_env(
+            device=getattr(args, "device", None) or "cuda")
+        armed.append(kernelcheck)
+    return armed
+
+
 def main(argv=None):
     from repic_tpu_torch.runtime import faults
 
@@ -60,8 +83,13 @@ def main(argv=None):
     # fault sites, so the retry / quarantine / resume ladder can be
     # rehearsed on a real run
     faults.install_from_env()
+    armed = _arm_sanitizers(args)
     args._module.main(args)
-    return 0
+    # an armed sanitizer's report goes to stderr; a violation fails the
+    # run even when the command itself succeeded
+    for sanitizer in armed:
+        print(sanitizer.report_text(), file=sys.stderr)
+    return 1 if any(s.violations() for s in armed) else 0
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repic_tpu_torch.analysis.contracts import Contract, checked
 from repic_tpu_torch.models import preprocess as pp
 from repic_tpu_torch.models.checkpoint import params_from_jax
 from repic_tpu_torch.models.cnn import (
@@ -70,6 +71,11 @@ def score_grid_shape(shape, patch_size: int, step: int = STEP_SIZE):
     )
 
 
+#: the registry entry's static knobs (the reference's)
+_SCORE_STATIC = {"patch_size": 16, "step": STEP_SIZE}
+
+
+@checked(Contract(static=_SCORE_STATIC))
 @torch.no_grad()
 def score_micrograph_patches(
     params, img, *, patch_size: int, step: int = STEP_SIZE,

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repic_tpu_torch import telemetry
+from repic_tpu_torch.analysis.contracts import Contract, checked
 from repic_tpu_torch.models.checkpoint import params_from_jax
 from repic_tpu_torch.models.cnn import (
     PickerCNN,
@@ -126,6 +127,7 @@ def learning_rate(count: int, init: float, decay_steps: int,
     return _flush(np.float32(init) * _flush(_powf(rate, p)))
 
 
+@checked(Contract())
 def train_step(model: PickerCNN, momentum: dict, batch, labels, lr, *,
                decay: float = 0.9, dropout_mask=None, generator=None):
     """One update of ``model``'s parameters and ``momentum`` (a dict of

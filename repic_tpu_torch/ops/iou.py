@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
+
 
 def _size(s, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(s, dtype=like.dtype, device=like.device)
@@ -47,6 +49,17 @@ def pair_iou(xy_a, xy_b, box_size, box_size_b=None):
     )
 
 
+@checked(Contract(
+    args={
+        "xy_a": spec("N 2"),
+        "mask_a": spec("N", "bool"),
+        "xy_b": spec("M 2"),
+        "mask_b": spec("M", "bool"),
+        "box_size": spec(""),
+    },
+    returns=spec("N M"),
+    dims={"N": 8, "M": 5},
+))
 def pairwise_iou_matrix(
     xy_a, mask_a, xy_b, mask_b, box_size, box_size_b=None
 ):

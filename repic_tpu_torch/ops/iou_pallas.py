@@ -11,6 +11,10 @@ takes a stable descending sort.
 
 Both take an optional leading batch dimension, so one call (one
 launch) covers every (micrograph, picker pair) of a chunk.
+
+:func:`pallas_topk_neighbors` is the registry entry under the
+reference's name: its :class:`KernelContract` holds the kernel against
+the dense IoU matrix and a top-``d`` (KERNELCHECK).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import numbers
 import torch
 
 from repic_tpu_torch import _build
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
+from repic_tpu_torch.analysis.kernels import KernelContract
 from repic_tpu_torch.ops.iou import pair_iou
 
 NEG = -1.0  # value of an empty top-D slot (any IoU is >= 0)
@@ -160,3 +166,95 @@ def topk_neighbors(
     _build.check(err, "topk_neighbors")
     LAUNCHES += 1
     return _unbatch(single, (out_v, out_i, out_c))
+
+
+# -- the registry entry and its kernel contract (KERNELCHECK) ----------
+
+_PROBE_D = 8
+_PROBE_BOX = 180.0
+_PROBE_THRESHOLD = 0.3
+
+
+def _probe_inputs(dims: dict):
+    """The reference's probe inputs (same generator, same draws)."""
+    import numpy as np
+
+    n, m = dims["N"], dims["M"]
+    rng = np.random.default_rng(n + m)
+    xa = torch.tensor(rng.uniform(0, 2000.0, (n, 2)), dtype=torch.float32)
+    xb = torch.tensor(rng.uniform(0, 2000.0, (m, 2)), dtype=torch.float32)
+    ma = torch.from_numpy(rng.uniform(size=n) > 0.15)
+    mb = torch.from_numpy(rng.uniform(size=m) > 0.15)
+    return (xa, ma, xb, mb, _PROBE_BOX, _PROBE_BOX), {}
+
+
+def _reference(xy_a, mask_a, xy_b, mask_b, size_a, size_b):
+    """Ground truth: the dense IoU matrix and a top-d, the unfused path
+    this kernel replaces."""
+    from repic_tpu_torch.ops.iou import pairwise_iou_matrix
+
+    iou = pairwise_iou_matrix(xy_a, mask_a, xy_b, mask_b, size_a, size_b)
+    v, i = torch.topk(iou, _PROBE_D, dim=-1)
+    cnt = (iou > _PROBE_THRESHOLD).sum(-1, dtype=torch.int32)
+    return v, i.to(torch.int32), cnt
+
+
+def _compare(got, want, tol):
+    """Values (empty slots read as IoU 0) and adjacency counts; indices
+    are skipped -- zero-IoU candidates form large tie classes, which
+    the kernel and a top-k may order differently."""
+    import numpy as np
+
+    tv, _ti, cnt = got
+    rv, _ri, rc = want
+    msgs = []
+    tvc = np.where(tv < 0, 0.0, tv)
+    if not np.allclose(tvc, rv, atol=tol, rtol=0.0):
+        delta = float(np.max(np.abs(tvc - rv)))
+        msgs.append(
+            f"top-{_PROBE_D} IoU values: max |kernel - reference| "
+            f"= {delta:.3g} > tol {tol:g}"
+        )
+    if not np.array_equal(cnt, rc):
+        msgs.append(
+            f"adjacency counts differ for {int(np.sum(cnt != rc))} "
+            "anchor(s)"
+        )
+    return msgs
+
+
+@checked(Contract(
+    args={
+        "xy_a": spec("N 2"),
+        "mask_a": spec("N", "bool"),
+        "xy_b": spec("M 2"),
+        "mask_b": spec("M", "bool"),
+        "size_a": spec(""),
+        "size_b": spec(""),
+    },
+    returns=(
+        spec("N 8"), spec("N 8", "int32"), spec("N", "int32")
+    ),
+    dims={"N": 40, "M": 70},
+    static={"d": _PROBE_D, "threshold": _PROBE_THRESHOLD},
+    kernel=KernelContract(
+        # bucket-aligned rungs plus a ragged one
+        ladder=(
+            {"N": 64, "M": 128},
+            {"N": 96, "M": 256},
+            {"N": 40, "M": 70},
+        ),
+        make_inputs=_probe_inputs,
+        reference=_reference,
+        compare=_compare,
+        tol=1e-6,
+    ),
+))
+def pallas_topk_neighbors(
+    xy_a, mask_a, xy_b, mask_b, size_a, size_b,
+    *, d: int = 16, threshold: float = 0.3,
+):
+    """:func:`topk_neighbors` under the reference's name: the kernel's
+    registry entry."""
+    return topk_neighbors(xy_a, mask_a, xy_b, mask_b, size_a, size_b,
+                          d=d, threshold=threshold)

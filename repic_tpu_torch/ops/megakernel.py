@@ -17,6 +17,14 @@ Valid rows leave in product order — the staged buffers' valid-row
 order — so ``consensus_one``'s shared weight compaction yields the
 same buffer on both rungs, and the BOX output is byte-identical.
 
+Each wrapper is a ``@checked`` entry whose :class:`KernelContract`
+holds it, one micrograph at a time, against the unfused path
+(KERNELCHECK): kernel 2 against the staged full-product enumeration
+compacted in index order, kernel 3 against
+:func:`~repic_tpu_torch.solver.dual.solve_lp_device`.  A chunk the
+fused program ran answers to the candidates entry's dispatch budget
+of 3 (DISPATCHCHECK).
+
 Eligibility (:func:`fused_eligible`) is the reference's envelope:
 dense path (no spatial grid), ``2 <= K <= 6``, ``N <= 8192``, ``D^(K-1) <= 4096``.
 Outside it ``consensus_one`` demotes statically to the staged program
@@ -30,6 +38,8 @@ import ctypes
 import torch
 
 from repic_tpu_torch import _build, telemetry
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
+from repic_tpu_torch.analysis.kernels import KernelContract
 from repic_tpu_torch.ops.cliques import (
     CliqueSet,
     _assemble_block,
@@ -172,6 +182,137 @@ def _check(t, dtype, shape, dev, name):
         raise ValueError(f"{name}: on {t.device}, expected {dev}")
 
 
+# -- the kernel contracts (KERNELCHECK) --------------------------------
+
+_PROBE_D = 4
+_PROBE_CAP = 1024
+_PROBE_BOX = 180.0
+_PROBE_THRESHOLD = 0.3
+_CANDIDATES_STATIC = {
+    "threshold": _PROBE_THRESHOLD,
+    "max_neighbors": _PROBE_D,
+    "clique_capacity": _PROBE_CAP,
+}
+
+
+def _probe_inputs(dims: dict):
+    """One micrograph of the reference's probe inputs (same generator,
+    same draws): clustered fields, so real cliques and zero-weight ties
+    form."""
+    import numpy as np
+
+    n, k = dims["N"], dims["K"]
+    rng = np.random.default_rng(1000 * k + n)
+    base = rng.uniform(0, 1500.0, (n, 2))
+    xy = torch.tensor(base[None] + rng.normal(0, 25.0, (k, n, 2)),
+                      dtype=torch.float32)
+    conf = torch.tensor(rng.uniform(0.5, 1.0, (k, n)), dtype=torch.float32)
+    mask = torch.from_numpy(rng.uniform(size=(k, n)) > 0.15)
+    return (xy, conf, mask, _PROBE_BOX), {}
+
+
+def _run_candidates(xy, conf, mask, box_size):
+    """The kernel side: one micrograph through the batched wrapper."""
+    out = fused_clique_candidates(xy[None], conf[None], mask[None],
+                                  box_size, **_CANDIDATES_STATIC)
+    return tuple(o[0] for o in out)
+
+
+def _reference(xy, conf, mask, box_size):
+    """Ground truth: the staged full-product path this kernel fuses
+    away, compacted in index order to the kernel's buffer width (the
+    chunked path's discipline: valid rows first, pid ascending)."""
+    from repic_tpu_torch.ops.cliques import enumerate_cliques
+
+    n = xy.shape[1]
+    d = min(_PROBE_D, n)
+    cap = min(_PROBE_CAP, n * d ** (xy.shape[0] - 1))
+    cs = enumerate_cliques(
+        xy[None], conf[None], mask[None], box_size,
+        threshold=_PROBE_THRESHOLD, max_neighbors=_PROBE_D,
+    )
+    valid = cs.valid[0]
+    length = valid.shape[0]            # full product: position == pid
+    pos = torch.arange(length, device=valid.device)
+    order = torch.argsort(torch.where(valid, pos, length), stable=True)
+    order = order[:cap]
+    return (
+        cs.member_idx[0][order], valid[order], cs.w[0][order],
+        cs.confidence[0][order], cs.rep_slot[0][order],
+        cs.rep_xy[0][order], order.to(torch.int32), cs.num_valid[0],
+        cs.max_adjacency[0],
+    )
+
+
+def _compare(got, want, tol):
+    """Exact equality on valid rows and the two probes; invalid slots
+    hold path-specific values on both sides and are skipped."""
+    import numpy as np
+
+    (g_mem, g_val, g_w, g_cf, g_slot, g_xy, g_pid, g_nv, g_adj) = got
+    (r_mem, r_val, r_w, r_cf, r_slot, r_xy, r_pid, r_nv, r_adj) = want
+    msgs = []
+    if int(g_nv) != int(r_nv):
+        msgs.append(f"num_valid: kernel {int(g_nv)} vs reference "
+                    f"{int(r_nv)}")
+    if int(g_adj) != int(r_adj):
+        msgs.append(f"max_adjacency: kernel {int(g_adj)} vs reference "
+                    f"{int(r_adj)}")
+    if g_val.shape != r_val.shape or not np.array_equal(g_val, r_val):
+        bad = (int(np.sum(g_val != r_val))
+               if g_val.shape == r_val.shape else "every")
+        msgs.append(f"valid mask differs on {bad} slot(s)")
+        return msgs
+    v = g_val
+    for name, g, r in (
+        ("member_idx", g_mem, r_mem),
+        ("w", g_w, r_w),
+        ("confidence", g_cf, r_cf),
+        ("rep_slot", g_slot, r_slot),
+        ("rep_xy", g_xy, r_xy),
+        ("pid", g_pid, r_pid),
+    ):
+        g, r = g[v], r[v]
+        if not np.array_equal(g, r):
+            bad = int(np.sum(np.any(np.atleast_2d(g != r), axis=-1)))
+            msgs.append(f"{name}: {bad} valid row(s) differ")
+    return msgs
+
+
+@checked(Contract(
+    # per micrograph; the wrapper takes a leading micrograph axis
+    args={
+        "xy": spec("K N 2"),
+        "conf": spec("K N"),
+        "mask": spec("K N", "bool"),
+        "box_size": spec(""),
+    },
+    returns=(
+        spec("C K", "int32"), spec("C", "bool"), spec("C"),
+        spec("C"), spec("C", "int32"), spec("C 2"),
+        spec("C", "int32"), spec("", "int32"), spec("", "int32"),
+    ),
+    dims={"K": 3, "N": 8, "C": 128},
+    static=_CANDIDATES_STATIC,
+    kernel=KernelContract(
+        # bucket-aligned rungs plus ragged ones, across picker counts
+        # (K=2 degenerates the product join)
+        ladder=(
+            {"K": 3, "N": 64},
+            {"K": 3, "N": 96},
+            {"K": 2, "N": 40},
+            {"K": 4, "N": 24},
+        ),
+        make_inputs=_probe_inputs,
+        reference=_reference,
+        run=_run_candidates,
+        compare=_compare,
+        tol=0.0,
+    ),
+    # the fused program's launches + the packed-output fetch: a chunk
+    # stays within 3 (DISPATCHCHECK)
+    dispatch_budget=3,
+))
 def fused_clique_candidates(
     xy, conf, mask, box_size,
     *, threshold: float = 0.3, max_neighbors: int = 16,
@@ -270,6 +411,69 @@ def fused_dual_solve_plain(member_vertex, w, valid, num_vertices):
     return picked[:, :c]
 
 
+_SOLVE_PROBE_V = 64
+
+
+def _solve_probe_inputs(dims: dict):
+    """One packing of the reference's probe inputs."""
+    import numpy as np
+
+    c, k = dims["C"], dims["K"]
+    rng = np.random.default_rng(7 * c + k)
+    mv = torch.tensor(rng.integers(0, _SOLVE_PROBE_V, (c, k)),
+                      dtype=torch.int32)
+    w = torch.tensor(rng.uniform(0.1, 1.0, (c,)), dtype=torch.float32)
+    valid = torch.from_numpy(rng.uniform(size=c) > 0.2)
+    return (mv, w, valid), {}
+
+
+def _run_solve(member_vertex, w, valid):
+    """The kernel side: one packing through the batched wrapper."""
+    return fused_dual_solve(member_vertex[None], w[None], valid[None],
+                            _SOLVE_PROBE_V)[0]
+
+
+def _solve_reference(member_vertex, w, valid):
+    """Ground truth: the staged ``lp_device`` solve."""
+    return _dual.solve_lp_device(member_vertex[None], w[None],
+                                 valid[None], _SOLVE_PROBE_V)[0]
+
+
+def _solve_compare(got, want, tol):
+    import numpy as np
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return [f"picked: kernel ({got.shape}, {got.dtype}) vs "
+                f"reference ({want.shape}, {want.dtype})"]
+    if not np.array_equal(got, want):
+        return [f"picked mask differs on {int(np.sum(got != want))} "
+                "clique(s)"]
+    return []
+
+
+@checked(Contract(
+    args={
+        "member_vertex": spec("C K", "int32"),
+        "w": spec("C"),
+        "valid": spec("C", "bool"),
+    },
+    returns=spec("C", "bool"),
+    dims={"C": 16, "K": 3},
+    static={"num_vertices": _SOLVE_PROBE_V},
+    kernel=KernelContract(
+        ladder=(
+            {"C": 16, "K": 3},
+            {"C": 100, "K": 4},
+            {"C": 128, "K": 2},
+        ),
+        make_inputs=_solve_probe_inputs,
+        reference=_solve_reference,
+        run=_run_solve,
+        compare=_solve_compare,
+        tol=0.0,
+    ),
+    dispatch_budget=3,
+))
 def fused_dual_solve(member_vertex, w, valid, num_vertices):
     """``solve_lp_device`` of M packings in one launch (kernel 3).
 

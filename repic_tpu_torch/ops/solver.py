@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repic_tpu_torch import telemetry
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -36,7 +37,22 @@ _NODE_LIMIT_FALLBACKS = telemetry.counter(
     "silent per-component greedy fallbacks after a node-limit hit",
 )
 
+#: the device solver rungs' shared contract: (C, K) int32 vertex ids +
+#: (C,) weights/mask -> (C,) bool picks, V static (per micrograph; the
+#: rungs take any leading batch axes)
+_SOLVER_CONTRACT = Contract(
+    args={
+        "member_vertex": spec("C K", "int32"),
+        "w": spec("C"),
+        "valid": spec("C", "bool"),
+    },
+    returns=spec("C", "bool"),
+    dims={"C": 16, "K": 3},
+    static={"num_vertices": 48},
+)
 
+
+@checked(_SOLVER_CONTRACT)
 def solve_greedy(
     member_vertex: torch.Tensor,
     w: torch.Tensor,
@@ -124,6 +140,7 @@ class SolverBudgetExceeded(RuntimeError):
     solve_host_ladder`) then degrades exact -> lp -> greedy."""
 
 
+@checked(_SOLVER_CONTRACT)
 def solve_lp_rounding(
     member_vertex: torch.Tensor,
     w: torch.Tensor,

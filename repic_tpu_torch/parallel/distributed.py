@@ -10,8 +10,13 @@ group is ``torch.distributed``'s, created from torchrun's environment
 collective (:mod:`repic_tpu_torch.runtime.cluster` coordinates through
 files): the group gives every process its identity
 (:func:`runtime_identity`) and the per-process share of the work
-(:func:`shard_for_process`).  The collective gang
-(``repic_tpu.parallel.gang``) is not ported.
+(:func:`shard_for_process`).  The gang
+(:mod:`repic_tpu_torch.parallel.gang`) runs its collectives on a group
+of its own, one per epoch (:func:`init_gang_group`): a ``TCPStore``
+hosted by the epoch's rank 0 (under torchrun, for the launch's epoch,
+the agent's store) and a ``gloo`` group over it, whose
+all-reduces travel over CPU tensors, so several gang processes can
+share one card and no NCCL communicator is created.
 
 Typical launch, one process per card::
 
@@ -24,6 +29,17 @@ Typical launch, one process per card::
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
+
+class CollectiveError(RuntimeError):
+    """A gang collective that failed: a peer's connection reset or the
+    group's timeout ran out.  Gloo fails where XLA's collective hangs,
+    so the gang's watchdog reads this as a wedged dispatch."""
+
+
+#: this process's gang group of the current epoch: ``(group, store,
+#: world, rank)``; None outside a multi-process gang
+_GANG = None
 
 
 def _env_int(name: str) -> int | None:
@@ -163,13 +179,88 @@ def runtime_identity() -> "tuple[str, int, int] | None":
 
 
 def shutdown() -> bool:
-    """Destroy an active process group (idempotent); True when one was
-    destroyed."""
+    """Leave the gang group and destroy an active process group
+    (idempotent); True when either was there.
+
+    The gang re-formation calls this after a collective fault, with
+    the wedged dispatch thread perhaps still inside an all-reduce of
+    the old group: that group is dropped, not destroyed (its timeout
+    ends the thread's wait), so the call never blocks and a new group
+    can form at another world size, rank and port at once."""
+    global _GANG
+    left = _GANG is not None
+    _GANG = None
     dist = _dist()
     if not _active(dist):
-        return False
+        return left
     dist.destroy_process_group()
     return True
+
+
+def _agent_store_at(host: str, port: int) -> bool:
+    """Is ``host:port`` the store of the torchrun agent that launched
+    this process?  The agent hosts it itself
+    (``TORCHELASTIC_USE_AGENT_STORE``) at the launch's ``MASTER_ADDR``
+    and ``MASTER_PORT``, so a worker may only join it as a client."""
+    return (os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
+            and os.environ.get("MASTER_ADDR") == host
+            and _env_int("MASTER_PORT") == int(port))
+
+
+def init_gang_group(coordinator: str, world: int, rank: int,
+                    timeout_s: float) -> None:
+    """Form this epoch's gang group: a ``TCPStore`` at ``coordinator``
+    (``host:port``, hosted by ``rank`` 0) and a ``gloo`` group of
+    ``world`` processes over it.  Under torchrun the launch's
+    coordinator is the agent's own store: every rank joins it as a
+    client, under a key prefix of this launch attempt.  Replaces the
+    previous epoch's group.  Store and group wait ``timeout_s`` for
+    their peers and raise when one never comes; the group's
+    collectives time out after as long.  A world of one forms no
+    group."""
+    global _GANG
+    _GANG = None
+    if int(world) <= 1:
+        return
+    import datetime
+
+    import torch.distributed as dist
+
+    host, _, port = str(coordinator).replace("tcp://", "").rpartition(":")
+    host = host or "127.0.0.1"
+    timeout = datetime.timedelta(seconds=max(float(timeout_s), 1.0))
+    if _agent_store_at(host, int(port)):
+        store = dist.PrefixStore(
+            "repic_gang/"
+            + os.environ.get("TORCHELASTIC_RESTART_COUNT", "0") + "/",
+            dist.TCPStore(host, int(port), int(world), False,
+                          timeout=timeout))
+    else:
+        store = dist.TCPStore(host, int(port), int(world), int(rank) == 0,
+                              timeout=timeout)
+    group = dist.ProcessGroupGloo(store, int(rank), int(world), timeout)
+    _GANG = (group, store, int(world), int(rank))
+
+
+def gang_all_reduce_max(values):
+    """Elementwise MAX of a small host vector over the gang group, as a
+    numpy array (the vector itself without a group).  Travels as a
+    float64 CPU tensor: integers up to 2**53 stay exact."""
+    import numpy as np
+    import torch
+
+    vec = np.asarray(values, np.float64).reshape(-1)
+    if _GANG is None:
+        return vec
+    import torch.distributed as dist
+
+    t = torch.from_numpy(vec.copy())
+    try:
+        _GANG[0].allreduce([t], dist.ReduceOp.MAX).wait()
+    except RuntimeError as e:
+        raise CollectiveError(
+            f"gang all-reduce failed: {str(e)[:300]}") from e
+    return t.numpy()
 
 
 def _process_index_count() -> tuple[int, int]:
@@ -221,3 +312,46 @@ def pad_rows_to(arrays, rows: int | None):
             out.append(np.concatenate([a, np.zeros(shape, a.dtype)],
                                       axis=0))
     return tuple(out)
+
+
+class GlobalRows(NamedTuple):
+    """Where one process's rows sit in a gang chunk's global batch:
+    ``world`` processes of ``rows`` rows each, this one the
+    ``rank``-th, rows ``[start, stop)`` of ``global_rows``."""
+
+    rows: int
+    world: int
+    rank: int
+
+    @property
+    def global_rows(self) -> int:
+        return self.rows * self.world
+
+    @property
+    def start(self) -> int:
+        return self.rows * self.rank
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.rows
+
+
+def assemble_global_batch(local_arrays, pad_rows_to: int | None = None,
+                          *, process_id=None, process_count=None):
+    """This process's part of a gang chunk's global batch.
+
+    The reference builds one sharded global array out of every
+    process's rows; here every process runs its own rows, so the
+    global batch is a layout: the local arrays (this process's
+    :func:`shard_for_process` share) zero-padded to ``pad_rows_to``
+    rows by :func:`pad_rows_to` -- all-masked micrographs, so a short
+    or empty shard takes part with the shapes of its peers and emits
+    nothing -- and their :class:`GlobalRows`.  Returns ``(arrays,
+    layout)``."""
+    pid, n = _process_index_count()
+    pid = pid if process_id is None else int(process_id)
+    n = n if process_count is None else int(process_count)
+    # the reference's keyword shadows the module's function
+    arrays = globals()["pad_rows_to"](local_arrays, pad_rows_to)
+    rows = max((int(a.shape[0]) for a in arrays), default=0)
+    return arrays, GlobalRows(rows=rows, world=n, rank=pid)

@@ -55,7 +55,12 @@ mesh.  Cluster mode (``cluster=ClusterConfig(...)``) runs one process
 per host over a shared output directory
 (:mod:`repic_tpu_torch.runtime.cluster`): heartbeats, a leased shard of
 the micrographs, per-host journals and telemetry, and the takeover of
-a lost host's work.  The collective gang is not ported.
+a lost host's work.  Gang mode (``gang=GangConfig(...)``) runs every
+chunk as one job over N processes (:mod:`repic_tpu_torch.parallel.gang`):
+each process runs its rows on its card, the processes agree on the
+capacities with MAX all-reduces on a gloo group under a collective
+watchdog, and a peer lost mid-collective re-forms a smaller gang
+(:func:`_run_gang`).
 """
 
 from __future__ import annotations
@@ -75,6 +80,8 @@ import numpy as np
 import torch
 
 from repic_tpu_torch import telemetry
+from repic_tpu_torch.analysis import dispatchcheck
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.ops.cliques import (
     DEFAULT_THRESHOLD,
     compact_cliques,
@@ -98,7 +105,10 @@ from repic_tpu_torch.parallel.batching import (
     pad_batch,
     to_device,
 )
-from repic_tpu_torch.parallel.mesh import shard_over_micrographs
+from repic_tpu_torch.parallel.mesh import (
+    MICROGRAPH_AXIS,
+    shard_over_micrographs,
+)
 from repic_tpu_torch.runtime import faults
 from repic_tpu_torch.runtime.atomic import atomic_write, file_lock
 from repic_tpu_torch.runtime.journal import (
@@ -278,6 +288,40 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@checked(Contract(
+    # per micrograph (K picker rows of N padded particles in, C =
+    # clique_capacity padded cliques out); the function takes a leading
+    # micrograph axis, the pspecs name the axis a mesh splits
+    args={
+        "xy": spec("K N 2"),
+        "conf": spec("K N"),
+        "mask": spec("K N", "bool"),
+        "box_size": spec(""),
+    },
+    returns={
+        "rep_xy": spec("C 2"),
+        "confidence": spec("C"),
+        "w": spec("C"),
+        "member_idx": spec("C K", "int32"),
+        "rep_slot": spec("C", "int32"),
+        "picked": spec("C", "bool"),
+        "valid": spec("C", "bool"),
+        "num_cliques": spec("", "int32"),
+        "max_adjacency": spec("", "int32"),
+        "max_partial": spec("", "int32"),
+    },
+    dims={"K": 3, "N": 8, "C": 64},
+    static={"clique_capacity": 64, "max_neighbors": 4},
+    pspecs={
+        "xy": (MICROGRAPH_AXIS,),
+        "conf": (MICROGRAPH_AXIS,),
+        "mask": (MICROGRAPH_AXIS,),
+    },
+    max_trace_variants=4,
+    # a staged chunk: its kernel launches (kernel 1 under --pallas)
+    # plus the one packed fetch stay within 5 (DISPATCHCHECK)
+    dispatch_budget=5,
+))
 def consensus_one(
     xy, conf, mask, box_size,
     *,
@@ -430,6 +474,72 @@ def make_batched_consensus(
         return consensus_over_mesh(xy, conf, mask, box_size, mesh, **config)
 
     return fn
+
+
+@checked(Contract(
+    # a gang chunk: this process's rows of the global batch (M of them)
+    args={
+        "xy": spec("M K N 2"),
+        "conf": spec("M K N"),
+        "mask": spec("M K N", "bool"),
+        "box_size": spec(""),
+    },
+    returns={
+        "rep_xy": spec("M C 2"),
+        "confidence": spec("M C"),
+        "w": spec("M C"),
+        "member_idx": spec("M C K", "int32"),
+        "rep_slot": spec("M C", "int32"),
+        "picked": spec("M C", "bool"),
+        "valid": spec("M C", "bool"),
+        "num_cliques": spec("M", "int32"),
+        "max_adjacency": spec("M", "int32"),
+        "max_partial": spec("M", "int32"),
+    },
+    dims={"M": 8, "K": 3, "N": 8, "C": 64},
+    static={"clique_capacity": 64, "max_neighbors": 4},
+    pspecs={
+        "xy": (MICROGRAPH_AXIS,),
+        "conf": (MICROGRAPH_AXIS,),
+        "mask": (MICROGRAPH_AXIS,),
+    },
+    max_trace_variants=4,
+))
+def gang_consensus_chunk(
+    xy,
+    conf,
+    mask,
+    box_size,
+    *,
+    threshold: float = DEFAULT_THRESHOLD,
+    max_neighbors: int = 16,
+    clique_capacity: int = 4096,
+    mesh=None,
+    spatial_grid: int | None = None,
+    cell_capacity: int = 64,
+    solver: str = "lp_device",
+    use_pallas: bool = False,
+    partial_capacity: int | None = None,
+) -> ConsensusResult:
+    """One gang chunk: the batched consensus program over this
+    process's rows of the global batch
+    (:func:`~repic_tpu_torch.parallel.distributed.assemble_global_batch`),
+    at capacities every process of the gang agreed on
+    (:func:`~repic_tpu_torch.parallel.distributed.gang_all_reduce_max`).
+    Every micrograph is its own problem, so the rows' results are the
+    unsharded program's rows."""
+    fn = make_batched_consensus(
+        threshold=threshold,
+        max_neighbors=max_neighbors,
+        clique_capacity=clique_capacity,
+        mesh=mesh,
+        spatial_grid=spatial_grid,
+        cell_capacity=cell_capacity,
+        solver=solver,
+        use_pallas=use_pallas,
+        partial_capacity=partial_capacity,
+    )
+    return fn(xy, conf, mask, box_size)
 
 
 def _sizes(xy, box_size) -> torch.Tensor:
@@ -710,6 +820,9 @@ def run_consensus_batch(
     device=None,
     full: bool = False,
     mesh=None,
+    capacities: tuple | None = None,
+    extent: float | None = None,
+    reduce_probes=None,
 ) -> tuple[ConsensusResult, np.ndarray]:
     """Run consensus on one host batch with automatic escalation.
 
@@ -724,6 +837,14 @@ def run_consensus_batch(
     ``device``) splits the chunk program over its devices
     (:func:`consensus_over_mesh`).  The accepted attempt's kernel
     launches and fetches are left for :func:`consume_dispatch_report`.
+
+    A gang chunk (:func:`_run_gang`) passes the last three together:
+    ``capacities`` ``(d, cap, cell_cap, pcap)`` and the spatial
+    ``extent`` that the gang agreed on take the place of this batch's
+    own probes, extent and escalation memo, ``reduce_probes(probes,
+    capacities)`` turns each attempt's probes into their gang-wide
+    maximum, so that every process escalates in step, and
+    :func:`gang_consensus_chunk` runs the attempt.
     """
     dev = resolve_device(device)
     if mesh is not None and len(mesh) > 1:
@@ -757,10 +878,13 @@ def run_consensus_batch(
     )
     dbatch = to_device(batch, dev)
     _load_persisted_configs()
-    known = _LAST_GOOD_CONFIG.get(cfg_key)
+    known = (_LAST_GOOD_CONFIG.get(cfg_key) if capacities is None
+             else tuple(capacities))
     if spatial:
         # the padded host batch, zero padding included, sets the grid
-        grid = grid_size(float(np.max(batch.xy)) + max_size, max_size)
+        if extent is None:
+            extent = float(np.max(batch.xy))
+        grid = grid_size(extent + max_size, max_size)
         if known is None:
             cell = cell_probe(dbatch.xy, dbatch.mask, box_arg, grid)
             cell_cap = _next_bucket(max(int(cell.max()), 2))
@@ -773,6 +897,8 @@ def run_consensus_batch(
     if known is not None:
         d, cap, cell_cap, pcap = known
     pack = _pack_full_result if full else _pack_box_outputs
+    program = (consensus_over_mesh if reduce_probes is None
+               else gang_consensus_chunk)
     n_real = sum(1 for n in batch.names if n)
     while True:
         # the dispatch window of this attempt: a rejected (escalated)
@@ -793,8 +919,8 @@ def run_consensus_batch(
         with tlm_events.span("consensus_dispatch",
                              micrographs=int(batch.xy.shape[0]),
                              capacity=batch.capacity):
-            res = consensus_over_mesh(
-                dbatch.xy, dbatch.conf, dbatch.mask, box_arg, mesh,
+            res = program(
+                dbatch.xy, dbatch.conf, dbatch.mask, box_arg, mesh=mesh,
                 threshold=threshold,
                 max_neighbors=d,
                 clique_capacity=cap,
@@ -809,6 +935,8 @@ def run_consensus_batch(
         packed = out.cpu().numpy()
         telemetry.record_transfer(packed.nbytes)
         probes = _packed_probes(packed).max(axis=0)
+        if reduce_probes is not None:
+            probes = reduce_probes(probes, (d, cap, cell_cap, pcap))
         d, cap, cell_cap, pcap, retry = escalate_capacities(
             probes, d, cap, cell_cap, pcap, has_grid=grid is not None
         )
@@ -833,13 +961,19 @@ def run_consensus_batch(
                 megakernel.note_fused_chunk(n_real)
                 entry = "repic_tpu_torch.ops.megakernel.fused_clique_candidates"
         launch_now, fetch_now = _dispatch_marks()
+        dispatches = (launch_now - launch_mark) + (fetch_now - fetch_mark)
         _DISPATCH_REPORT.report = {
             "entry": entry,
-            "dispatches": (launch_now - launch_mark)
-            + (fetch_now - fetch_mark),
+            "dispatches": dispatches,
             "micrographs": n_real,
             "solver": solver,
         }
+        if dispatchcheck.installed():
+            dispatchcheck.note_chunk(entry, dispatches, solver=solver,
+                                     micrographs=n_real)
+        if capacities is not None:
+            # the gang's capacities are the gang's, not this batch's memo
+            return res, packed
         # this batch's exact requirement; a probe that means nothing on
         # this path (no grid, no staged join) keeps the running value
         max_adj, n_cliques, max_cell, max_part = (int(v) for v in probes)
@@ -1599,6 +1733,7 @@ def run_consensus_dir(
     use_mesh: bool = True,
     mesh=None,
     cluster=None,
+    gang=None,
 ) -> dict:
     """Read ``in_dir/<picker>/*.box``, run consensus, write one output
     per micrograph into ``out_dir`` (deleted first unless ``resume``).
@@ -1641,10 +1776,66 @@ def run_consensus_dir(
     at chunk boundaries, and after its own lease takes over the work of
     hosts whose heartbeat went stale.  A cluster run always resumes
     (``out_dir`` is never deleted under live peers) and composes with
-    the batched path only.  Returns run statistics (``stats["cluster"]``
-    in cluster mode)."""
+    the batched path only.
+
+    Gang mode (``gang=GangConfig(...)``): N processes run every chunk
+    as one gang-scheduled job (:mod:`repic_tpu_torch.parallel.gang`).
+    Each process loads, runs, emits and journals only its
+    ``shard_for_process`` rows of the chunk's global batch, on its own
+    card (``LOCAL_RANK``'s, round the host's cards); the processes agree
+    on the batch capacity, the spatial extent and every escalation
+    probe through MAX all-reduces on a gloo group, each under the
+    collective watchdog of
+    :class:`~repic_tpu_torch.parallel.gang.GangSupervisor`.  A peer
+    lost mid-collective is a *gang fault*: the survivors abort, re-form
+    a smaller gang over the remaining work or degrade to independent
+    per-host execution, journaling ``gang_formed`` / ``gang_fault`` /
+    ``gang_reformed`` / ``gang_degraded`` with ``gang_epoch`` on every
+    record, so a fenced straggler's late writes lose.  Gang mode implies
+    cluster semantics (heartbeats, fences, per-host journals) and
+    composes with the plain-BOX batched path only (not ``stripes``,
+    ``multi_out``, ``get_cc`` or ``solver="exact"``).
+
+    Returns run statistics (``stats["cluster"]`` in cluster mode,
+    ``stats["gang"]`` in gang mode)."""
     _check_flags(solver, solver_budget_s, stripes, multi_out, get_cc,
                  use_pallas)
+    if gang is not None and (stripes is not None or multi_out or get_cc
+                             or solver == "exact"):
+        raise ValueError(
+            "gang mode composes with the plain-BOX batched path "
+            "only (not --stripes/--multi_out/--get_cc/--solver "
+            "exact)"
+        )
+    dev = resolve_device(device)
+    gang_sup = None
+    if gang is not None:
+        from repic_tpu_torch.parallel.distributed import _env_int
+        from repic_tpu_torch.parallel.gang import GangSupervisor
+        from repic_tpu_torch.runtime.cluster import ClusterConfig
+
+        # the group forms before anything touches the card; the
+        # supervisor binds to the journal once the run directory exists
+        gang_sup = GangSupervisor(
+            gang,
+            cluster.coordination_dir
+            if cluster is not None and cluster.coordination_dir
+            else out_dir,
+        )
+        gang_sup.form_runtime()
+        if cluster is None:
+            # heartbeats (the watchdog's liveness input), fences and
+            # per-host journals
+            cluster = ClusterConfig(coordination_dir=out_dir)
+        # one card per gang process: torchrun's LOCAL_RANK names it,
+        # round the host's cards (several processes may share one)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", (_env_int("LOCAL_RANK") or 0)
+                               % torch.cuda.device_count())
+        if dev.type == "cuda":
+            # the chunk's kernels launch from this thread
+            torch.cuda.set_device(dev)
+        mesh = (dev,)
     if cluster is not None:
         if stripes is not None:
             raise ValueError(
@@ -1653,7 +1844,6 @@ def run_consensus_dir(
             )
         # a shared out_dir is never deleted under live peers
         resume = True
-    dev = resolve_device(device)
     mesh = _resolve_mesh(dev, use_mesh, mesh)
     dev = mesh[0]
     policy = retry_policy or DEFAULT_POLICY
@@ -1732,7 +1922,7 @@ def run_consensus_dir(
             use_pallas=use_pallas, multi_out=multi_out, get_cc=get_cc,
             stripes=stripes, strict=strict, policy=policy,
             solver_budget_s=solver_budget_s, dev=dev, mesh=mesh,
-            run_tlm=run_tlm, ctx=ctx,
+            run_tlm=run_tlm, ctx=ctx, gang_sup=gang_sup,
         )
     finally:
         # a raising run still restores the previous event log and
@@ -1754,7 +1944,7 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
                    timer, t0, *, threshold, max_neighbors, num_particles,
                    spatial, solver, use_pallas, multi_out, get_cc, stripes,
                    strict, policy, solver_budget_s, dev, mesh, run_tlm,
-                   ctx=None):
+                   ctx=None, gang_sup=None):
     """:func:`run_consensus_dir` once its journal and telemetry are
     open (and, in cluster mode, its :class:`ClusterContext` started)."""
     out_ext = ".tsv" if multi_out else ".box"
@@ -1765,7 +1955,14 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             out_name = latest[nm].get("out", nm + out_ext)
             if os.path.exists(os.path.join(out_dir, out_name)):
                 already_done.add(nm)
-    if ctx is not None:
+    if gang_sup is not None:
+        # the gang owns the todo collectively (each chunk is one job
+        # over every process): no per-host lease split; every member
+        # derives the same list from the merged journal view
+        gang_sup.bind(journal, ctx)
+        todo = [n for n in names if n not in already_done]
+        ctx.crash_point("start")
+    elif ctx is not None:
         # this host's shard of the FULL name list (a done-filtered list
         # would move the shard boundaries between staggered hosts);
         # dead peers' unfinished names come back into it
@@ -1774,6 +1971,11 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
         ctx.crash_point("start")
     else:
         todo = [n for n in names if n not in already_done]
+
+    def _gang_fields():
+        """The epoch tag of every gang-mode journal record (the
+        write-fencing input of the merged fold)."""
+        return {} if gang_sup is None else {"gang_epoch": gang_sup.epoch}
 
     def _load_one(nm):
         """One micrograph's BOX files; in lenient mode a read or parse
@@ -1807,16 +2009,18 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
                                   kind=classify_error(sets))
                 quarantined[name] = info
                 journal.record(name, "quarantined", error=info,
-                               stage="load")
+                               stage="load", **_gang_fields())
             elif sets is None:
                 skipped.append(name)
                 box_io.write_empty_box(os.path.join(out_dir, name + ".box"))
-                journal.record(name, "skipped", out=name + ".box")
+                journal.record(name, "skipped", out=name + ".box",
+                               **_gang_fields())
             else:
                 out.append((name, sets))
         return out
 
-    loaded = _load(todo)
+    # a gang process loads its own shard, chunk by chunk
+    loaded = [] if gang_sup is not None else _load(todo)
     stats = {
         "pickers": pickers,
         "micrographs": len(names),
@@ -1879,13 +2083,18 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             dev=dev, mesh=mesh, out_ext=out_ext, run_tlm=run_tlm,
             outcomes=outcomes, ctx=ctx,
         )
-        if loaded:
+        if gang_sup is not None:
+            _run_gang(todo, gang_sup, _load, out_dir, box_size, pickers,
+                      stats, journal, chunked_kw=kw)
+        elif loaded:
             _run_chunked(loaded, out_dir, box_size, pickers, stats,
                          journal, **kw)
         # the host ladder's reassignment rung: after its own lease a
         # cluster host takes over the work of peers whose heartbeat
-        # went stale (suspect -> fence -> reassign) until none is left
-        while ctx is not None:
+        # went stale (suspect -> fence -> reassign) until none is left;
+        # a gang owns its todo collectively (a degraded one runs its
+        # own final sweep)
+        while ctx is not None and gang_sup is None:
             orphans = ctx.harvest_orphans(journal, names, strict=strict)
             if not orphans:
                 break
@@ -1901,6 +2110,15 @@ def _run_journaled(in_dir, out_dir, box_size, pickers, names, journal,
             stats["solver_rungs"] = dict(outcomes.solver)
     if ctx is not None:
         stats["cluster"] = ctx.stats()
+    if gang_sup is not None:
+        stats["gang"] = {
+            "epoch": gang_sup.epoch,
+            "world": gang_sup.world,
+            "rank": gang_sup.rank,
+            "mode": gang_sup.mode,
+            "faults": gang_sup.faults_seen,
+            "reformations": gang_sup.reformations,
+        }
     timer.stages.append(("compute", stats["compute_s"]))
     timer.stages.append(("write", stats["write_s"]))
     timer.write_tsv(out_dir, "consensus_runtime.tsv")
@@ -1913,7 +2131,7 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
                  threshold, max_neighbors, num_particles, spatial, solver,
                  use_pallas, multi_out, get_cc, strict, policy,
                  solver_budget_s, dev, mesh, out_ext, run_tlm, outcomes,
-                 ctx=None):
+                 ctx=None, gang_epoch=None):
     """The batched branch over one work list (a cluster host calls it
     again for each batch of work it takes over): the chunk engine, one
     journal record per micrograph (with ``reassigned_from`` for work
@@ -1965,11 +2183,6 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
             res = host
         return res, extras
 
-    def _sink(fname, content):
-        with atomic_write(os.path.join(out_dir, fname)) as o:
-            o.write(content)
-
-    compute_s = write_s = 0.0
     cc_rounds = stats.setdefault("cc_rounds", []) if get_cc else []
     chunks_info: dict = {}
     # a chunk's window since the previous chunk's emit: the build
@@ -2019,66 +2232,299 @@ def _run_chunked(loaded, out_dir, box_size, pickers, stats, journal, *,
             else:
                 counts = emit_box_chunk(cbatch, extra, box_size,
                                         num_particles=num_particles,
-                                        sink=_sink)
+                                        sink=_box_sink(out_dir))
                 nc = _packed_probes(extra)[:, _HEAD_NC]
-        write_s += time.time() - t_emit0
-        compute_s += chunk_s
-        _MICROGRAPHS.inc(len(part))
-        stats["particle_counts"].update(counts)
-        stats["clique_counts"].update(
-            (name, int(c)) for name, c in zip(cbatch.names, nc) if name
-        )
-        stats["num_cliques"] += int(np.sum(nc[: len(part)], dtype=np.int64))
-        stats["chunks"] += 1
-        for nm, _sets in part:
-            fields = dict(
-                wall_s=round(chunk_s / max(len(part), 1), 6),
-                solver=outcomes.solver.get(nm, solver),
-                particles=counts.get(nm), out=nm + out_ext,
-            )
-            src = outcomes.reassigned.get(nm)
-            if src is not None:
-                fields["reassigned_from"] = src
-            journal.record(nm, outcomes.status.get(nm, "ok"), **fields)
-        telemetry.flush_run(run_tlm)
-        ladder_tally: dict = {}
-        for st in outcomes.status.values():
-            ladder_tally[st] = ladder_tally.get(st, 0) + 1
-        if ctx is not None:
-            # a cluster host counts the whole run's progress, its peers'
-            # included, from the merged journal; quarantines from the
-            # same view
-            merged = ctx.merged_latest()
-            q_count = sum(1 for e in merged.values()
-                          if e.get("status") == STATUS_QUARANTINED)
-            done = q_count + sum(1 for e in merged.values()
-                                 if e.get("status") in DONE_STATUSES)
-        else:
-            # progress over the whole run: resumed, skipped and
-            # quarantined micrographs count as processed
-            q_count = len(stats["quarantined"]) + len(outcomes.quarantined)
-            done = (stats["resumed"] + len(stats["particle_counts"])
-                    + len(stats["skipped"]) + q_count)
-        tlm_server.set_ready(True)  # the first chunk is done: warmed up
-        tlm_server.set_status(
-            phase="running",
-            chunks_done=stats["chunks"],
-            micrographs_done=done,
-            quarantined=q_count,
-            ladder=ladder_tally,
-        )
-        # emit covers the chunk's host tail (write, journal, flush), so
-        # the segments stay contiguous and sum to the run's wall
-        tlm_trace.add_segment("emit", t_emit0, time.time() - t_emit0,
-                              chunk=chunk_i, micrographs=len(part))
+        _close_chunk(part, cbatch.names, counts, nc, chunk_s, t_emit0,
+                     stats=stats, journal=journal, outcomes=outcomes,
+                     solver=solver, out_ext=out_ext, run_tlm=run_tlm,
+                     ctx=ctx, gang_epoch=gang_epoch,
+                     crash_key=f"after_chunk:{chunk_i}")
         t_mark = time.time()
         comp_mark = tlm_probes.compile_seconds()
         hits_mark, miss_mark = hits_now, miss_now
-        if ctx is not None:
-            # the host_crash site, and a fenced host stops before its
-            # next chunk (a survivor owns its lease now)
-            ctx.crash_point(f"after_chunk:{stats['chunks'] - 1}")
-            ctx.ensure_not_fenced()
-    stats.update(chunk=chunks_info["chunk"], capacity=chunks_info["capacity"],
-                 compute_s=stats["compute_s"] + compute_s,
-                 write_s=stats["write_s"] + write_s)
+    stats.update(chunk=chunks_info["chunk"], capacity=chunks_info["capacity"])
+
+
+def _box_sink(out_dir):
+    """``sink(filename, content)`` writing each BOX file atomically
+    into ``out_dir``."""
+    def sink(fname, content):
+        with atomic_write(os.path.join(out_dir, fname)) as o:
+            o.write(content)
+
+    return sink
+
+
+def _close_chunk(part, names, counts, nc, chunk_s, t_emit0, *, stats,
+                 journal, outcomes, solver, out_ext, run_tlm, ctx,
+                 gang_epoch, crash_key):
+    """The host tail of a written chunk, shared by the chunk engine's
+    loop (:func:`_run_chunked`) and the gang's (:func:`_run_gang`):
+    the run's statistics, one journal record per micrograph (with
+    ``reassigned_from`` for work taken over, and ``gang_epoch`` when
+    given), a sink flush, the ``/status`` progress, the ``emit`` trace
+    segment from ``t_emit0`` and, in cluster mode, the crash point
+    ``crash_key`` and the fence check.  ``counts`` are the written rows
+    and ``nc`` the clique counts of the rows ``names``."""
+    chunk_i = stats["chunks"]
+    stats["write_s"] += time.time() - t_emit0
+    stats["compute_s"] += chunk_s
+    _MICROGRAPHS.inc(len(part))
+    stats["particle_counts"].update(counts)
+    stats["clique_counts"].update(
+        (name, int(c)) for name, c in zip(names, nc) if name
+    )
+    stats["num_cliques"] += int(np.sum(nc[: len(part)], dtype=np.int64))
+    stats["chunks"] += 1
+    for nm, _sets in part:
+        fields = dict(
+            wall_s=round(chunk_s / max(len(part), 1), 6),
+            solver=outcomes.solver.get(nm, solver),
+            particles=counts.get(nm), out=nm + out_ext,
+        )
+        src = outcomes.reassigned.get(nm)
+        if src is not None:
+            fields["reassigned_from"] = src
+        if gang_epoch is not None:
+            # a gang's records, a degraded gang's too, carry its epoch,
+            # outranking any straggler of an older gang
+            fields["gang_epoch"] = gang_epoch
+        journal.record(nm, outcomes.status.get(nm, "ok"), **fields)
+    telemetry.flush_run(run_tlm)
+    ladder_tally: dict = {}
+    for st in outcomes.status.values():
+        ladder_tally[st] = ladder_tally.get(st, 0) + 1
+    if ctx is not None:
+        # a cluster host counts the whole run's progress, its peers'
+        # included, from the merged journal; quarantines from the
+        # same view
+        merged = ctx.merged_latest()
+        q_count = sum(1 for e in merged.values()
+                      if e.get("status") == STATUS_QUARANTINED)
+        done = q_count + sum(1 for e in merged.values()
+                             if e.get("status") in DONE_STATUSES)
+    else:
+        # progress over the whole run: resumed, skipped and
+        # quarantined micrographs count as processed
+        q_count = len(stats["quarantined"]) + len(outcomes.quarantined)
+        done = (stats["resumed"] + len(stats["particle_counts"])
+                + len(stats["skipped"]) + q_count)
+    tlm_server.set_ready(True)  # the first chunk is done: warmed up
+    tlm_server.set_status(
+        phase="running",
+        chunks_done=stats["chunks"],
+        micrographs_done=done,
+        quarantined=q_count,
+        ladder=ladder_tally,
+    )
+    # emit covers the chunk's host tail (write, journal, flush), so
+    # the segments stay contiguous and sum to the run's wall
+    tlm_trace.add_segment("emit", t_emit0, time.time() - t_emit0,
+                          chunk=chunk_i, micrographs=len(part))
+    if ctx is not None:
+        # the host_crash site, and a fenced host stops before its
+        # next chunk (a survivor owns its lease now)
+        ctx.crash_point(crash_key)
+        ctx.ensure_not_fenced()
+
+
+def _merged_remaining(ctx, pool) -> list:
+    """Names of ``pool`` not yet terminal in the merged (all hosts,
+    epoch-aware) journal view."""
+    merged = ctx.merged_latest()
+    return [
+        n for n in pool
+        if merged.get(n, {}).get("status") not in DONE_STATUSES
+        and merged.get(n, {}).get("status") != STATUS_QUARANTINED
+    ]
+
+
+def _run_gang(todo_all, sup, load, out_dir, box_size, pickers, stats,
+              journal, *, chunked_kw):
+    """The gang branch: every chunk is one job over the gang; this
+    process loads, runs, emits and journals its
+    :func:`~repic_tpu_torch.parallel.distributed.shard_for_process`
+    share, padded to the gang's per-process row quota.  The processes
+    agree on the batch capacity and the spatial extent, then on every
+    attempt's probes, through MAX all-reduces, each under the
+    supervisor's collective watchdog; the chunk itself runs through
+    :func:`run_consensus_batch` on this process's card.  A gang fault
+    re-forms the gang (or degrades it), and the loop resumes over the
+    epoch record's todo; a degraded gang runs its deterministic
+    independent share, then a final sweep, through
+    :func:`_run_chunked`.  ``chunked_kw`` are :func:`_run_chunked`'s
+    keywords, whose options this branch shares."""
+    from repic_tpu_torch.parallel import distributed as dist
+    from repic_tpu_torch.parallel.gang import GangFault, GangFenced
+    from repic_tpu_torch.runtime.cluster import HostFenced
+
+    kw = chunked_kw
+    ctx, dev, solver = kw["ctx"], kw["dev"], kw["solver"]
+    k = len(pickers)
+    max_size = float(np.asarray(box_size, np.float32).max())
+    quarantined, skipped = stats["quarantined"], stats["skipped"]
+    loaded_by_name: dict = {}
+    caps = None
+    # the capacities whose collective COMPLETED in this epoch: a
+    # dispatch aborted by a fault never finished its first run, so its
+    # retry on the re-formed gang gets the first-run deadline again
+    executed: set = set()
+    todo = list(todo_all)
+    chunk_global = None
+
+    def _agree(values, key, fresh):
+        return sup.dispatch(lambda: dist.gang_all_reduce_max(values),
+                            key=key, fresh_compile=fresh)
+
+    while todo and sup.mode == "gang":
+        my_todo = dist.shard_for_process(todo, sup.rank, sup.world)
+        fresh = [n for n in my_todo if n not in loaded_by_name
+                 and n not in quarantined and n not in skipped]
+        if fresh:
+            for nm, sets in load(fresh):
+                loaded_by_name[nm] = sets
+        mine = [loaded_by_name[n] for n in my_todo if n in loaded_by_name]
+        fault = None
+        try:
+            local_max_n = max((bs.n for sets in mine for bs in sets),
+                              default=0)
+            local_extent = max(
+                (float(np.max(bs.xy)) if bs.n else 0.0
+                 for sets in mine for bs in sets),
+                default=0.0,
+            )
+            # every process must pad and escalate alike
+            agreed = _agree(np.asarray((local_max_n, local_extent)),
+                            "exchange", True)
+            nb = bucket_size(max(int(agreed[0]), 1))
+            if caps is None:
+                cap0 = max(4 * nb, 1024)
+                caps = (kw["max_neighbors"], cap0, 64, cap0)
+            if chunk_global is None:
+                # one card per process: the gang's devices are its world
+                chunk_global = _auto_chunk(len(todo), k, nb, sup.world)
+            rows = dist.local_row_quota(
+                -(-min(chunk_global, len(todo)) // sup.world), 1)
+            per = -(-len(todo) // sup.world)
+            for ci in range(max(-(-per // rows), 1)):
+                part = [(nm, loaded_by_name[nm])
+                        for nm in my_todo[ci * rows:(ci + 1) * rows]
+                        if nm in loaded_by_name]
+                lbatch = pad_batch(part, pad_micrographs_to=rows,
+                                   capacity=nb, num_pickers=k)
+                local, _layout = dist.assemble_global_batch(
+                    (lbatch.xy, lbatch.conf, lbatch.mask), pad_rows_to=rows,
+                    process_id=sup.rank, process_count=sup.world)
+                lbatch = lbatch._replace(xy=local[0], conf=local[1],
+                                         mask=local[2])
+                ckey = f"gchunk:{sup.epoch}:{ci}"
+                accepted = []
+
+                def _reduce(probes, attempt, ckey=ckey, accepted=accepted):
+                    out = _agree(probes, ckey, attempt not in executed)
+                    executed.add(attempt)
+                    accepted[:] = [attempt]
+                    return out
+
+                t1 = time.time()
+                with tlm_events.span("gang_chunk", micrographs=len(part),
+                                     epoch=sup.epoch, capacity=nb):
+                    faults.inject("oom", ckey)
+                    faults.inject("io", ckey)
+                    packed = run_consensus_batch(
+                        lbatch, box_size, threshold=kw["threshold"],
+                        spatial=kw["spatial"], solver=solver,
+                        use_pallas=kw["use_pallas"], device=dev,
+                        capacities=caps, extent=float(agreed[1]),
+                        reduce_probes=_reduce,
+                    )[1]
+                caps = accepted[0]
+                chunk_s = time.time() - t1
+                _CHUNKS.inc()
+                report = consume_dispatch_report()
+                if report is not None:
+                    journal.record_event("chunk_dispatches", **report)
+                tlm_trace.add_segment(
+                    "execute", t1, chunk_s, chunk=stats["chunks"],
+                    gang_epoch=sup.epoch, micrographs=len(part),
+                    capacity=nb,
+                )
+                t2 = time.time()
+                with tlm_events.span("write", micrographs=len(part)):
+                    counts = emit_box_chunk(
+                        lbatch, packed, box_size,
+                        num_particles=kw["num_particles"],
+                        sink=_box_sink(out_dir),
+                    )
+                # the gang's records: its own outcomes, every one "ok"
+                _close_chunk(part, lbatch.names, counts,
+                             _packed_probes(packed)[:, _HEAD_NC], chunk_s,
+                             t2, stats=stats, journal=journal,
+                             outcomes=ChunkOutcomes(), solver=solver,
+                             out_ext=kw["out_ext"], run_tlm=kw["run_tlm"],
+                             ctx=ctx, gang_epoch=sup.epoch,
+                             crash_key=f"after_chunk:{ci}")
+                stats.update(chunk=chunk_global, capacity=nb)
+            todo = []
+        except GangFault as gf:
+            fault = gf
+        except (GangFenced, HostFenced, ConsensusCancelled):
+            # presumed dead by the re-formed gang / fenced by a
+            # survivor: stop -- late writes lose by epoch
+            raise
+        except Exception as e:  # noqa: BLE001 — the gang ladder
+            if kw["strict"]:
+                raise
+            fault = GangFault(
+                f"gang dispatch failed: {str(e)[:200]}",
+                kind="dispatch_error",
+                oom=classify_error(e) == "oom",
+            )
+            sup.faults_seen += 1
+            # the watchdog's classifications count inside dispatch;
+            # this one is classified here
+            telemetry.counter(
+                "repic_gang_faults_total",
+                "SPMD dispatches classified as gang faults",
+            ).inc()
+        if fault is None:
+            continue
+        # a classified gang fault: journal it, then abort + re-form, or
+        # degrade once the fault budget is spent (a poison chunk must
+        # not re-form forever)
+        sup.record_fault(fault, chunk=chunk_global or 0,
+                         context="consensus_dir")
+        remaining = _merged_remaining(ctx, todo_all)
+        if sup.faults_seen > sup.cfg.max_faults:
+            sup.degrade(f"fault budget ({sup.cfg.max_faults}) exhausted")
+        else:
+            sup.reform(remaining, chunk=chunk_global or 0, oom=fault.oom)
+        if sup.mode == "gang":
+            # the epoch record's todo is adopted verbatim, so every
+            # survivor walks the same list; a name a peer finished just
+            # before the fault runs again, harmlessly (atomic, equal
+            # outputs; the higher epoch wins the fold)
+            rec_todo = sup.current_todo()
+            todo = list(rec_todo if rec_todo is not None else remaining)
+            rec_chunk = sup.current_chunk()
+            if rec_chunk:
+                chunk_global = rec_chunk
+            caps = None               # re-probe on the new gang
+            executed.clear()
+
+    if sup.mode != "independent":
+        return
+    # degraded: independent per-host execution over deterministic
+    # shares of the remainder, then a final sweep of anything still
+    # unclaimed (duplicates are harmless, as above)
+    for final_pass in (False, True):
+        remaining = _merged_remaining(ctx, todo_all)
+        if not remaining:
+            break
+        share = remaining if final_pass else sup.independent_share(remaining)
+        if not share:
+            continue
+        share = load(share)
+        if share:
+            _run_chunked(share, out_dir, box_size, pickers, stats, journal,
+                         gang_epoch=sup.epoch, **kw)

@@ -36,7 +36,9 @@ from dataclasses import dataclass, field, fields
 
 import torch
 
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.ops.cliques import DEFAULT_THRESHOLD
+from repic_tpu_torch.parallel.mesh import MICROGRAPH_AXIS
 from repic_tpu_torch.parallel.batching import bucket_size
 from repic_tpu_torch.pipeline.consensus import (  # noqa: F401 - re-exports
     ConsensusCancelled,
@@ -284,6 +286,36 @@ def execute_request(
     )
 
 
+@checked(Contract(
+    # the serve path's execute entry: one padded chunk (M micrographs,
+    # K pickers, N particle capacity) through the chunk program
+    args={
+        "xy": spec("M K N 2"),
+        "conf": spec("M K N"),
+        "mask": spec("M K N", "bool"),
+        "box_size": spec(""),
+    },
+    returns={
+        "rep_xy": spec("M C 2"),
+        "confidence": spec("M C"),
+        "w": spec("M C"),
+        "member_idx": spec("M C K", "int32"),
+        "rep_slot": spec("M C", "int32"),
+        "picked": spec("M C", "bool"),
+        "valid": spec("M C", "bool"),
+        "num_cliques": spec("M", "int32"),
+        "max_adjacency": spec("M", "int32"),
+        "max_partial": spec("M", "int32"),
+    },
+    dims={"M": 2, "K": 3, "N": 8, "C": 64},
+    static={"clique_capacity": 64, "max_neighbors": 4},
+    pspecs={
+        "xy": (MICROGRAPH_AXIS,),
+        "conf": (MICROGRAPH_AXIS,),
+        "mask": (MICROGRAPH_AXIS,),
+    },
+    max_trace_variants=4,
+))
 def consensus_chunk_program(
     xy: torch.Tensor,
     conf: torch.Tensor,

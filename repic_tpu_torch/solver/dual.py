@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repic_tpu_torch import telemetry
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.ops.solver import solve_greedy
 
 DEFAULT_NUM_ITERS = 200
@@ -224,6 +225,17 @@ def solve_dual_decomposition(
     )
 
 
+@checked(Contract(
+    # the other device solver rungs' contract (ops/solver.py)
+    args={
+        "member_vertex": spec("C K", "int32"),
+        "w": spec("C"),
+        "valid": spec("C", "bool"),
+    },
+    returns=spec("C", "bool"),
+    dims={"C": 16, "K": 3},
+    static={"num_vertices": 48},
+))
 def solve_lp_device(
     member_vertex, w, valid, num_vertices,
     *, num_iters: int = DEFAULT_NUM_ITERS, tol: float = DEFAULT_TOL,

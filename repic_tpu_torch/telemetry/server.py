@@ -18,11 +18,12 @@ the surface is inert: :func:`set_status` is one global load and a
 branch, and nothing is bound or spawned.  Requests are served by a
 stdlib ``ThreadingHTTPServer`` in a daemon thread.
 
-``/status`` recomputes the cluster and fleet liveness views on every
-request from their coordination directories
+``/status`` recomputes the cluster, fleet and gang liveness views on
+every request from their coordination directories
 (:func:`repic_tpu_torch.runtime.cluster.read_liveness`), so a lost
-peer reads ``suspect`` as soon as its heartbeat ages out.  A pushed
-``gang`` section passes through as pushed (the gang is not ported).
+peer reads ``suspect`` as soon as its heartbeat ages out -- a gang
+member lost mid-collective too, while the survivors are still stuck
+in, or failing out of, the collective.
 """
 
 from __future__ import annotations
@@ -527,7 +528,7 @@ class StatusServer:
         """The ``/status`` JSON: the pushed fields, the time, the SLO
         tracker's summary when one is installed, and the liveness
         views recomputed for this request when the run registered a
-        ``fleet`` or a ``cluster`` section."""
+        ``fleet``, a ``cluster`` or a ``gang`` section."""
         from repic_tpu_torch.runtime.cluster import read_liveness
 
         doc = get_status()
@@ -559,6 +560,21 @@ class StatusServer:
                 doc["cluster"] = dict(cluster, hosts={
                     h: {"rung": st.rung, "age_s": st.age_s,
                         "lease": len(st.lease_names)}
+                    for h, st in view.items()
+                })
+            except Exception:  # noqa: BLE001 - a scrape never raises
+                pass
+        gang = doc.get("gang")
+        if isinstance(gang, dict) and gang.get("coordination_dir"):
+            try:
+                view = read_liveness(
+                    gang["coordination_dir"],
+                    float(gang.get("host_timeout_s", 10.0)),
+                )
+                doc["gang"] = dict(gang, members={
+                    h: {"rung": st.rung,
+                        "age_s": (None if st.age_s is None
+                                  else round(st.age_s, 3))}
                     for h, st in view.items()
                 })
             except Exception:  # noqa: BLE001 - a scrape never raises

@@ -127,12 +127,24 @@ def test_consensus_flag_checks_equal_reference(argv):
     assert msgs[0] == msgs[1]
 
 
-def test_gang_is_refused_naming_its_roadmap_item():
+def test_gang_is_refused_naming_its_roadmap_item(tmp_path):
+    """``--gang`` runs now (ROADMAP Queue 1 item 8b is ported); what it
+    refuses are the reference's refusals -- ``--stripes`` among them,
+    before anything runs -- and, with no card, the default device."""
     import argparse
+
+    import torch
 
     from repic_tpu_torch.commands import consensus as tcmd
 
     p = argparse.ArgumentParser()
     tcmd.add_arguments(p)
-    with pytest.raises(SystemExit, match="item 8b"):
-        tcmd.main(p.parse_args(["in", "out", "48", "--gang"]))
+    with pytest.raises(ValueError, match="gang mode composes with the "
+                       "plain-BOX batched path only"):
+        tcmd.main(p.parse_args([str(tmp_path / "in"), str(tmp_path / "o"),
+                                "48", "--gang", "--stripes", "2"]))
+    assert not (tmp_path / "o").exists()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            tcmd.main(p.parse_args([str(tmp_path / "in"),
+                                    str(tmp_path / "o"), "48", "--gang"]))

@@ -164,7 +164,14 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.pipeline.pickers',"
         " 'repic_tpu_torch.pipeline.iterative',"
         " 'repic_tpu_torch.commands.iter_config',"
-        " 'repic_tpu_torch.commands.iter_pick'} <= new\n"
+        " 'repic_tpu_torch.commands.iter_pick',"
+        " 'repic_tpu_torch.parallel.gang',"
+        " 'repic_tpu_torch.analysis',"
+        " 'repic_tpu_torch.analysis.contracts',"
+        " 'repic_tpu_torch.analysis.kernels',"
+        " 'repic_tpu_torch.analysis.kernelcheck',"
+        " 'repic_tpu_torch.analysis.dispatchcheck',"
+        " 'repic_tpu_torch.analysis.lockcheck'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu', 'flax', 'optax', 'pandas',"
         " 'msgpack'))\n"
@@ -234,13 +241,18 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "parallel/mesh.py", "parallel/distributed.py",
                 "pipeline/__init__.py", "solver/__init__.py",
                 "ops/__init__.py", "serve/fleet.py", "commands/fleet.py",
-                "commands/consensus.py"):
+                "commands/consensus.py",
+                # the gang and the runtime sanitizers
+                "parallel/gang.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/contracts.py",
+                "analysis/kernels.py", "analysis/kernelcheck.py",
+                "analysis/dispatchcheck.py", "analysis/lockcheck.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_cuda.py",
         "tests/torch_port_common.py", "tests/torch_serve_common.py",
-        "tests/torch_cluster_worker.py")]
+        "tests/torch_cluster_worker.py", "tests/torch_gang_worker.py")]
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):

@@ -984,3 +984,66 @@ def test_one_replica_fleet_job_on_card(cuda_device, tmp_path):
     finally:
         d.drain()
     assert FleetMember(fleet, "probe").orphaned_leases() == []
+
+
+@pytest.mark.cuda
+def test_kernelcheck_on_card_clean(cuda_device):
+    """KERNELCHECK on the card: the three CUDA kernels themselves
+    against their unfused paths over every ladder rung, 0 violations;
+    the same run with one kernel's output perturbed records it."""
+    import dataclasses
+
+    from repic_tpu_torch.analysis import contracts, kernelcheck
+
+    before = tcons.launch_counts()
+    with kernelcheck.scoped():
+        kernelcheck.reset()
+        assert kernelcheck.run_registered(device=cuda_device.type) == 3
+        assert kernelcheck.violations() == [], kernelcheck.report_text()
+        entry = contracts.registry()[
+            "repic_tpu_torch.ops.megakernel.fused_dual_solve"]
+        contract, kc = entry.contract, entry.contract.kernel
+
+        def perturbed(*args):
+            picked = kc.run(*args).clone()
+            picked[0] = ~picked[0]
+            return picked
+
+        entry.contract = dataclasses.replace(
+            contract, kernel=dataclasses.replace(kc, run=perturbed))
+        try:
+            kernelcheck.run_registered(("repic_tpu_torch.ops.megakernel",),
+                                       device=cuda_device.type)
+        finally:
+            entry.contract = contract
+        assert any(v["kind"] == "kernel-divergence"
+                   for v in kernelcheck.violations())
+    after = tcons.launch_counts()
+    assert all(after[k] > before[k] for k in after), (before, after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["lp_device_fused", "lp_device_pallas"])
+def test_gang_of_one_on_card_matches_goldens(cuda_device, tmp_path,
+                                             setting):
+    """``run_consensus_dir(gang=...)`` as a gang of one on the card: the
+    JAX package's BOX bytes, every kernel of the setting launched, no
+    fused chunk demoted."""
+    from repic_tpu_torch.parallel.gang import GangConfig
+
+    solver, pallas = SETTINGS[setting]
+    before, demoted = tcons.launch_counts(), tmk.DEMOTIONS
+    stats = tcons.run_consensus_dir(EXAMPLES, str(tmp_path), int(BOX),
+                                    solver=solver, use_pallas=pallas,
+                                    device=cuda_device, gang=GangConfig())
+    assert stats["gang"]["mode"] == "gang" and stats["gang"]["faults"] == 0
+    assert stats["device"].startswith("cuda")
+    for f in sorted(os.listdir(os.path.join(GOLDEN_DIR, setting))):
+        with open(os.path.join(GOLDEN_DIR, setting, f), "rb") as a, \
+                open(tmp_path / f, "rb") as b:
+            assert a.read() == b.read(), f
+    after = tcons.launch_counts()
+    need = (["topk_neighbors"] if pallas
+            else ["fused_clique_candidates", "fused_dual_solve"])
+    assert all(after[k] > before[k] for k in need), (before, after)
+    assert tmk.DEMOTIONS == demoted

@@ -40,11 +40,14 @@ VOLATILE = frozenset((
 _TWINS: dict = {}
 
 
-def load_twin(test_file: str, pkg: str, subs=()) -> types.ModuleType:
+def load_twin(test_file: str, pkg: str, subs=(),
+              name: str | None = None) -> types.ModuleType:
     """The test module ``tests/<test_file>`` for ``pkg``: as written
     for ``"jax"``; for ``"port"`` with the package renamed and each
-    ``(old, new)`` of ``subs`` replaced (each must occur)."""
-    key = (test_file, pkg, tuple(subs))
+    ``(old, new)`` of ``subs`` replaced (each must occur).  ``name`` is
+    the module's ``__name__`` (default ``_twin_<pkg>_<stem>``): a
+    sanitizer that scopes by the allocating frame's module reads it."""
+    key = (test_file, pkg, tuple(subs), name)
     if key in _TWINS:
         return _TWINS[key]
     path = os.path.join(REPO, "tests", test_file)
@@ -55,7 +58,8 @@ def load_twin(test_file: str, pkg: str, subs=()) -> types.ModuleType:
         for old, new in subs:
             assert old in src, f"{test_file}: no {old!r} to replace"
             src = src.replace(old, new)
-    name = f"_twin_{pkg}_{os.path.splitext(test_file)[0]}"
+    if name is None:
+        name = f"_twin_{pkg}_{os.path.splitext(test_file)[0]}"
     mod = types.ModuleType(name)
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)  # noqa: S102
