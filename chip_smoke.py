@@ -34,7 +34,7 @@ Phases, each fatal on failure:
    byte-identical; prints micrographs per second, the warm run's
    load / compute / write split, and the device's busy share in a
    third run under ``torch.profiler``;
-5. after phases 6 to 13, print the ``{"kernels": [...]}`` line
+5. after phases 6 to 16, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
    entry carries its k5_mixed chunk as ``k5_chunk``), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
@@ -219,7 +219,18 @@ Phases, each fatal on failure:
    writes, the package's module-level locks among the checked ones);
    (d), run before (c), the same gang launched as the README says,
    ``torchrun --nproc-per-node`` :data:`GANG_WORLD` on ``cuda:0``:
-   phase 4's bytes in one epoch.
+   phase 4's bytes in one epoch;
+16. the static analysis layer: (a) ``python -m repic_tpu_torch lint
+   repic_tpu_torch --concurrency --spmd --cost --format sarif`` in a
+   process of its own under ``-X importtime``: exit 0, 0 results, and
+   no ``torch`` module among that process's imports; its wall and the
+   results of each pass; (b) ``semantic.run_check`` over the package
+   on ``cuda`` in this process: every ``@checked`` entry of the
+   registry checked (and its route printed), 0 findings, 0 skips, the
+   launch counts of kernels 1-3 reset just before and each above 0
+   just after; (c) a divergence planted in kernel 3's contract
+   reference on its last rung: RT425 fires and names the entry and the
+   rung; (d) each step's seconds.
 
 Times are CUDA-event means over repeated calls after a warm-up: what a
 caller of the wrapper waits, host work between launches included.
@@ -3488,6 +3499,118 @@ def phase_sanitizers(synth, phase4_outs):
     return rep
 
 
+# -- phase 16: the static analysis layer ------------------------------
+
+#: the SARIF results of phase 16a by pass, from the rule ID's family
+LINT_PASSES = (("per-file (RT004, RT2xx)", ("RT0", "RT2")),
+               ("concurrency (RT3xx)", ("RT3",)),
+               ("spmd (RT40x)", ("RT4",)),
+               ("cost (RT5xx)", ("RT5",)))
+
+
+def phase_analysis():
+    """Phase 16: the port's ``lint`` in a process of its own (clean,
+    torch never imported), ``check`` on the card in this one (every
+    entry, 0 findings, 0 skips, kernels 1-3 launched by it), and a
+    divergence planted in kernel 3's contract reference that RT425
+    names."""
+    import dataclasses
+
+    from repic_tpu_torch.analysis import contracts
+    from repic_tpu_torch.analysis.kernels import run_kernel_checks
+    from repic_tpu_torch.analysis.semantic import run_check
+
+    rep = {"seconds": {}}
+    # (a) the lint gate, SARIF, in a process of its own
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "repic_tpu_torch",
+         "lint", "repic_tpu_torch", "--concurrency", "--spmd", "--cost",
+         "--format", "sarif"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    lint_s = rep["seconds"]["a"] = time.time() - t
+    imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
+    try:
+        results = json.loads(proc.stdout)["runs"][0]["results"]
+    except (ValueError, KeyError, IndexError):
+        results = None
+    if proc.returncode != 0 or results != [] or "torch" in imported \
+            or "repic_tpu_torch" not in imported:
+        raise AssertionError(
+            f"phase 16a: lint exit {proc.returncode}, results "
+            f"{results if results is None else len(results)}, torch "
+            f"imported {'torch' in imported}:\n{proc.stdout[-2000:]}")
+    per_pass = {name: sum(1 for r in results
+                          if r["ruleId"].startswith(prefixes))
+                for name, prefixes in LINT_PASSES}
+    rep["lint"] = {"exit": proc.returncode, "results": len(results),
+                   "per_pass": per_pass, "torch_imported": False,
+                   "modules_imported": len(imported)}
+    log(f"phase 16a: lint repic_tpu_torch --concurrency --spmd --cost "
+        f"--format sarif in its own process: exit 0, {len(results)} "
+        f"results {per_pass}; torch not among its {len(imported)} "
+        f"imported top-level modules; wall {lint_s:.2f}s")
+    # (b) check on the card, the kernels' launches counted around it
+    t = time.time()
+    reset_counts()
+    report = run_check([os.path.join(REPO, "repic_tpu_torch")],
+                       device="cuda")
+    counts = read_counts()
+    check_s = rep["seconds"]["b"] = time.time() - t
+    registered = sorted(k for k in contracts.registry()
+                        if k.startswith("repic_tpu_torch."))
+    checked = sorted(c["entry"] for c in report.checked)
+    if report.findings or report.skipped or checked != registered:
+        raise AssertionError(
+            "phase 16b: check on cuda: "
+            + "; ".join(f.format() for f in report.findings)
+            + f" skipped {report.skipped}; checked {checked} of "
+            f"{registered}")
+    _need_launches("phase 16b", counts, ("topk_neighbors",
+                                         "fused_clique_candidates",
+                                         "fused_dual_solve"))
+    routes = {c["entry"].rsplit(".", 1)[-1]: c["route"]
+              for c in report.checked}
+    rep["check"] = {"checked": len(checked), "findings": 0, "skipped": 0,
+                    "routes": routes, "launches": counts}
+    log(f"phase 16b: check repic_tpu_torch on cuda: {len(checked)} "
+        f"entries checked, 0 findings, 0 skips; routes {routes}; kernel "
+        f"launches during it {counts}; {check_s:.2f}s")
+    # (c) a divergence planted in kernel 3's reference on its last rung
+    t = time.time()
+    entry = contracts.registry()[
+        "repic_tpu_torch.ops.megakernel.fused_dual_solve"]
+    kc = entry.contract.kernel
+    last = dict(kc.ladder[-1])
+
+    def flipped(*args):
+        picked = kc.reference(*args).clone()
+        if picked.shape[-1] == last["C"]:
+            flat = picked.view(-1)
+            flat[0] = ~flat[0]
+        return picked
+
+    broken = dataclasses.replace(entry, contract=dataclasses.replace(
+        entry.contract, kernel=dataclasses.replace(kc, reference=flipped)))
+    found = []
+    run_kernel_checks(broken, "repic_tpu_torch/ops/megakernel.py", found,
+                      lambda r: r == "RT425", device="cuda")
+    rep["seconds"]["c"] = time.time() - t
+    if [f.rule for f in found] != ["RT425"] \
+            or "fused_dual_solve" not in found[0].message \
+            or f"rung {last}" not in found[0].message:
+        raise AssertionError("phase 16c: the planted divergence: "
+                             + "; ".join(f.format() for f in found))
+    rep["planted"] = found[0].message
+    log(f"phase 16c: a flip planted in kernel 3's contract reference on "
+        f"rung {last}: {found[0].rule} {found[0].message}")
+    log("phase 16d: seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in rep["seconds"].items()))
+    return rep
+
+
 def _module_lock_sites() -> set:
     """``module:line`` of every module-level lock of the package."""
     found = set()
@@ -3956,6 +4079,9 @@ def main() -> int:
                                       outs),
                "sanitizers": timed("15c", phase_sanitizers, synth, outs)}
 
+    # -- phase 16: the static analysis layer --------------------------
+    phase16 = timed("16", phase_analysis)
+
     # -- phase 5: report -------------------------------------------
     replaces = {
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
@@ -4004,13 +4130,16 @@ def main() -> int:
             "torchrun": phase15["gang_torchrun"]["launches"].get(
                 entry["name"], 0),
         }
+        # launches in phase 16b's check of the package on the card
+        entry["check_launches"] = phase16["check"]["launches"][
+            entry["name"]]
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,
               "stress_50k": stress, "k5_mixed": k5, "phase8": phase8,
               "phase9": phase9, "phase10": phase10, "phase11": phase11,
               "phase12": phase12, "phase13": phase13, "phase14": phase14,
-              "phase15": phase15,
+              "phase15": phase15, "phase16": phase16,
               "phase_seconds": phase_s}
     with open(os.path.join(OUT, "report.json"), "w") as f:
         json.dump(report, f, indent=1)

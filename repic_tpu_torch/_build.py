@@ -94,7 +94,9 @@ def _start(name: str):
     tmp = f"{out}.tmp{os.getpid()}"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
+    # a one-time build at first use, cached on disk after: holding the
+    # module lock across it keeps two threads from building one source
+    proc = subprocess.Popen(  # repic: noqa[RT303]
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return proc, tmp, out, t0

@@ -1,13 +1,10 @@
-"""``python -m repic_tpu_torch.analysis``: the reference's ``lint`` and
-``check`` entry point, which the port does not have yet."""
+"""``python -m repic_tpu_torch.analysis``: the standalone linter entry
+point (``python -m repic_tpu_torch lint``)."""
 
-import sys
+import argparse
 
-sys.exit(
-    "python -m repic_tpu_torch.analysis: the static analysis layer "
-    "(`lint` and `check`: the AST rule packs and the trace-time "
-    "contract checks) is not ported; it is ROADMAP Queue 1 item 9b.  "
-    "The runtime sanitizers are: arm them with REPIC_TPU_KERNELCHECK=1,"
-    " REPIC_TPU_DISPATCHCHECK=1 or REPIC_TPU_LOCKCHECK=1, or through "
-    "repic_tpu_torch.analysis.{kernelcheck,dispatchcheck,lockcheck}"
-)
+from repic_tpu_torch.analysis import cli
+
+parser = argparse.ArgumentParser(prog="python -m repic_tpu_torch.analysis")
+cli.add_arguments(parser)
+cli.main(parser.parse_args())

@@ -10,8 +10,9 @@ KERNELCHECK (:mod:`~repic_tpu_torch.analysis.kernelcheck`) holds every
 declared kernel against its unfused path, DISPATCHCHECK
 (:mod:`~repic_tpu_torch.analysis.dispatchcheck`) holds each chunk's
 launches and fetches to the budget of the entry it is attributed to.
-The reference's trace-time checker of the shape half (``repic-tpu
-check``) belongs to the static layer, ROADMAP Queue 1 item 9b.
+``python -m repic_tpu_torch check``
+(:mod:`~repic_tpu_torch.analysis.semantic`) holds each entry's outputs
+to its declared shapes and dtypes.
 
 Registration is import-time and FREE at call time: ``@checked``
 records the function in a module-level registry and returns it
@@ -96,6 +97,12 @@ class Contract:
             this entry may cost; DISPATCHCHECK
             (``REPIC_TPU_DISPATCHCHECK=1``) asserts it per chunk.
             ``None`` opts out.
+        batch: size of the leading micrograph axis the entry carries on
+            every non-scalar input and on every output, which the
+            per-micrograph specs omit (the reference vmapped a
+            per-micrograph function; the port's takes the batch).
+            ``check`` prepends it to the specs.  ``None``: the specs
+            are the entry's own shapes.
     """
 
     args: dict | None = None
@@ -109,6 +116,7 @@ class Contract:
     max_trace_variants: int = 4
     kernel: object = None
     dispatch_budget: int | None = None
+    batch: int | None = None
 
 
 @dataclasses.dataclass

@@ -6,9 +6,14 @@ directory consensus), the two-phase pair ``get_cliques`` +
 ``run_ilp``, ``report`` / ``trace`` over a run's directory, the
 ``serve`` daemon and its ``fleet supervise`` autoscaler, the CNN
 picker's ``pick`` and ``fit``, the
-iterative ensemble loop's ``iter_config`` and ``iter_pick``, and the
+iterative ensemble loop's ``iter_config`` and ``iter_pick``, the
 host utilities ``convert``, ``score``, ``build_subsets`` and
-``get_examples``.
+``get_examples``, and the analysis layer's ``lint`` (static, no torch)
+and ``check`` (the contracts and the kernel probes).
+
+Dispatch is two-phase, as in ``repic_tpu``: the subcommand token is
+found first and only its module is imported, so ``lint``, ``--help``
+and ``--version`` start without torch.
 
 ``REPIC_TPU_KERNELCHECK=1``, ``REPIC_TPU_DISPATCHCHECK=1`` and
 ``REPIC_TPU_LOCKCHECK=1`` arm the runtime sanitizers
@@ -17,7 +22,9 @@ stderr, and a violation makes the exit status 1.
 """
 
 import argparse
+import ast
 import importlib
+import importlib.util
 import sys
 
 import repic_tpu_torch
@@ -38,10 +45,26 @@ COMMANDS = {
     "score": "repic_tpu_torch.utils.scoring",
     "build_subsets": "repic_tpu_torch.utils.subsets",
     "get_examples": "repic_tpu_torch.commands.get_examples",
+    "lint": "repic_tpu_torch.analysis.cli",
+    "check": "repic_tpu_torch.analysis.check_cli",
 }
 
+# build_parser(only=STUBS_ONLY): register every subcommand name but
+# import no command module (--help / --version / usage errors)
+STUBS_ONLY = object()
 
-def build_parser():
+
+def _summary(module: str) -> str:
+    """First docstring line of a command module, read from its source
+    without importing it."""
+    spec = importlib.util.find_spec(module)
+    with open(spec.origin, encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read())) or ""
+    return doc.splitlines()[0] if doc else ""
+
+
+def build_parser(only=None):
+    """Parser with all (default), one, or no subcommands materialized."""
     parser = argparse.ArgumentParser(prog="python -m repic_tpu_torch")
     parser.add_argument(
         "--version",
@@ -50,6 +73,10 @@ def build_parser():
     )
     sub = parser.add_subparsers(dest="command", required=True)
     for cmd, module in COMMANDS.items():
+        if only is STUBS_ONLY or (only is not None and cmd != only):
+            # visible in help, parseable, but the module is not imported
+            sub.add_parser(cmd, help=_summary(module))
+            continue
         mod = importlib.import_module(module)
         p = sub.add_parser(cmd, help=(mod.__doc__ or "").splitlines()[0])
         mod.add_arguments(p)
@@ -78,7 +105,11 @@ def _arm_sanitizers(args) -> list:
 def main(argv=None):
     from repic_tpu_torch.runtime import faults
 
-    args = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    chosen = next((a for a in argv if a in COMMANDS), None)
+    args = build_parser(
+        only=chosen if chosen is not None else STUBS_ONLY
+    ).parse_args(argv)
     # REPIC_TPU_FAULTS plants deterministic failures at the runtime's
     # fault sites, so the retry / quarantine / resume ladder can be
     # rehearsed on a real run

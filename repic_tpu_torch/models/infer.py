@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repic_tpu_torch.analysis.contracts import Contract, checked
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.models import preprocess as pp
 from repic_tpu_torch.models.checkpoint import params_from_jax
 from repic_tpu_torch.models.cnn import (
@@ -42,6 +42,7 @@ from repic_tpu_torch.models.cnn import (
     PATCH_SIZE,
     build_model,
     fc_params_as_conv,
+    init_params,
 )
 
 STEP_SIZE = 4  # window stride on the binned micrograph
@@ -75,7 +76,24 @@ def score_grid_shape(shape, patch_size: int, step: int = STEP_SIZE):
 _SCORE_STATIC = {"patch_size": 16, "step": STEP_SIZE}
 
 
-@checked(Contract(static=_SCORE_STATIC))
+def _score_patches_example():
+    """Seeded ``(params, img)`` for the ``@checked`` contract: a fresh
+    deep-architecture state dict plus a 128x128 preprocessed
+    micrograph, on the CPU (``check`` moves them)."""
+    g = torch.Generator().manual_seed(0)
+    return init_params("deep", generator=g), torch.randn(
+        (128, 128), generator=g)
+
+
+@checked(Contract(
+    example=_score_patches_example,
+    static=_SCORE_STATIC,
+    # the score map is (out_h, out_w) f32: the sliding-window grid of
+    # the input image at the static patch and stride
+    returns=lambda inputs: spec(score_grid_shape(
+        inputs[1].shape, _SCORE_STATIC["patch_size"],
+        _SCORE_STATIC["step"])),
+))
 @torch.no_grad()
 def score_micrograph_patches(
     params, img, *, patch_size: int, step: int = STEP_SIZE,

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repic_tpu_torch import telemetry
-from repic_tpu_torch.analysis.contracts import Contract, checked
+from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.models.checkpoint import params_from_jax
 from repic_tpu_torch.models.cnn import (
     PickerCNN,
@@ -127,7 +127,28 @@ def learning_rate(count: int, init: float, decay_steps: int,
     return _flush(np.float32(init) * _flush(_powf(rate, p)))
 
 
-@checked(Contract())
+def _train_step_example():
+    """Seeded inputs for the ``@checked`` contract: a fresh deep-
+    architecture model with zero momentum traces, one 8-patch batch
+    and its labels, the learning rate; on the CPU (``check`` moves
+    them)."""
+    g = torch.Generator().manual_seed(0)
+    model = PickerCNN(**arch_kwargs("deep"))
+    model.load_state_dict(fresh_params("deep", generator=g))
+    momentum = {name: torch.zeros_like(p)
+                for name, p in model.named_parameters()}
+    batch = torch.randn((8, 64, 64, 1), generator=g)
+    labels = torch.randint(0, 2, (8,), generator=g)
+    return model, momentum, batch, labels, 0.01
+
+
+@checked(Contract(
+    example=_train_step_example,
+    # the update is in place; the loss is a f32 scalar and the logits
+    # are (B, 2) f32
+    returns=lambda inputs: (
+        spec(""), spec((inputs[2].shape[0], 2))),
+))
 def train_step(model: PickerCNN, momentum: dict, batch, labels, lr, *,
                decay: float = 0.9, dropout_mask=None, generator=None):
     """One update of ``model``'s parameters and ``momentum`` (a dict of

@@ -57,7 +57,9 @@ def _build(stem: str) -> str:
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    proc = subprocess.run(
+    # a one-time build at first use, cached on disk after: holding the
+    # module lock across it keeps two threads from building one stem
+    proc = subprocess.run(  # repic: noqa[RT303]
         [cxx, *CXX_FLAGS, os.path.join(_HERE, stem + ".cpp"), "-o", tmp],
         capture_output=True, text=True, timeout=300,
     )

@@ -312,6 +312,7 @@ def _compare(got, want, tol):
     # the fused program's launches + the packed-output fetch: a chunk
     # stays within 3 (DISPATCHCHECK)
     dispatch_budget=3,
+    batch=2,
 ))
 def fused_clique_candidates(
     xy, conf, mask, box_size,
@@ -473,6 +474,7 @@ def _solve_compare(got, want, tol):
         tol=0.0,
     ),
     dispatch_budget=3,
+    batch=2,
 ))
 def fused_dual_solve(member_vertex, w, valid, num_vertices):
     """``solve_lp_device`` of M packings in one launch (kernel 3).

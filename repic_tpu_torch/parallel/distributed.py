@@ -129,10 +129,11 @@ def initialize(
         if addr and port:
             coordinator_address = f"{addr}:{port}"
     # every process of a launch gets the same environment: a single
-    # process is a decision of the whole launch, not of one host
-    if (num_processes or 1) <= 1:
+    # process, or a missing coordinator, is a decision of the whole
+    # launch, not of one rank (bootstrap only: no group exists yet)
+    if (num_processes or 1) <= 1:  # repic: noqa[RT401]
         return False
-    if not coordinator_address:
+    if not coordinator_address:  # repic: noqa[RT401]
         raise ValueError(
             "repic_tpu_torch.parallel.distributed: "
             f"{num_processes} processes but no coordinator address "

@@ -321,6 +321,7 @@ def resolve_device(device=None) -> torch.device:
     # a staged chunk: its kernel launches (kernel 1 under --pallas)
     # plus the one packed fetch stay within 5 (DISPATCHCHECK)
     dispatch_budget=5,
+    batch=2,
 ))
 def consensus_one(
     xy, conf, mask, box_size,
@@ -932,7 +933,9 @@ def run_consensus_batch(
             )
             out = pack(res)
             tlm_probes.note_dispatch()
-        packed = out.cpu().numpy()
+        # the one packed fetch of the chunk: its probes size a retry
+        # only on the rare escalation, not a per-item ladder
+        packed = out.cpu().numpy()  # repic: noqa[RT502]
         telemetry.record_transfer(packed.nbytes)
         probes = _packed_probes(packed).max(axis=0)
         if reduce_probes is not None:

@@ -484,7 +484,9 @@ def warmup_from_cache(
                 use_pallas=e["use_pallas"],
                 partial_capacity=e["partial_capacity"],
             )
-            res.picked.cpu()
+            # warming IS running each program to its end: the per-entry
+            # sync is what counts a failed program as failed
+            res.picked.cpu()  # repic: noqa[RT004]
             note_program_signature(sig)
             warmed += 1
         except Exception:  # noqa: BLE001 — per-entry best effort

@@ -169,10 +169,13 @@ def run_consensus_giant(
             xy_d, conf_d, mask_d, box_arg, threshold=threshold, d=d,
             cap=cap, grid=grid, cell_cap=cell_cap, pcap=pcap,
         )
+        # the escalate-and-retry discipline of run_consensus_batch: the
+        # probe fetch sizing the next attempt is the documented rare
+        # path, not a per-item ladder
         probes = torch.stack([
             cs.max_adjacency.amax(), cs.num_valid.amax(),
             cs.max_cell_count.amax(), cs.max_partial.amax(),
-        ]).cpu().numpy()
+        ]).cpu().numpy()  # repic: noqa[RT502]
         d, cap, cell_cap, pcap, retry = escalate_capacities(
             probes, d, cap, cell_cap, pcap, has_grid=grid is not None
         )

@@ -221,7 +221,11 @@ class RunJournal:
         if tid is not None and "trace" not in entry:
             entry["trace"] = tid
         line = json.dumps(entry) + "\n"
-        with self._wlock:
+        # serializing the write+flush IS this lock's purpose: the
+        # prefetch worker and the emitting consumer share one append
+        # handle, and a flush outside the lock could interleave two
+        # half-written lines in the durability contract's file
+        with self._wlock:  # repic: noqa[RT303]
             if self._fh is None:
                 self._fh = open(self.path, "at")
             self._fh.write(line)

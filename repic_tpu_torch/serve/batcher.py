@@ -331,7 +331,7 @@ class ContinuousBatcher:
         # passes write into it) and every exit path — _finalize,
         # _close via _cancelled/_fallback/_fail, and the except
         # below — calls finish_run exactly once
-        rt = telemetry.start_run(
+        rt = telemetry.start_run(  # repic: noqa[RT202]
             out_dir,
             run_id=f"serve-{job.id}",
             host=replica,

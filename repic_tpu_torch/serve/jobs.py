@@ -289,7 +289,7 @@ class ServeJournal:
             # flush-before-202 IS the durability promise, and
             # serializing exactly this append+flush is this lock's
             # purpose
-            self._fh.flush()
+            self._fh.flush()  # repic: noqa[RT303]
 
     def close(self) -> None:
         with self._lock:

@@ -235,6 +235,7 @@ def solve_dual_decomposition(
     returns=spec("C", "bool"),
     dims={"C": 16, "K": 3},
     static={"num_vertices": 48},
+    batch=2,
 ))
 def solve_lp_device(
     member_vertex, w, valid, num_vertices,

@@ -94,7 +94,11 @@ class EventLog:
     def write(self, record: dict) -> None:
         record.setdefault("run", self.run_id)
         line = json.dumps(record, default=str) + "\n"
-        with self._wlock:
+        # serializing the write+flush IS this lock's purpose: span
+        # records arrive from the prefetch worker and the consumer on
+        # one shared handle, and flushing outside the lock could
+        # interleave two half-written lines
+        with self._wlock:  # repic: noqa[RT303]
             if self._fh is None:
                 return
             self._fh.write(line)

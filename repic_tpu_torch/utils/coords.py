@@ -22,6 +22,7 @@ from typing import Callable
 
 import numpy as np
 
+from repic_tpu_torch.runtime.atomic import atomic_write
 from repic_tpu_torch.utils.box_io import _is_float
 from repic_tpu_torch.utils.table import (
     EmptyDataError,
@@ -374,7 +375,7 @@ def write_tsv(t: Table, col_order, out_path, include_header=False,
     """BOX/TSV writer with caller-chosen column order."""
     _check_target(out_path, force)
     out_cols = [c for c in col_order if c in t]
-    with open(out_path, "w") as f:
+    with atomic_write(out_path, "wt") as f:
         f.write(t[out_cols].to_csv(header=include_header, sep="\t"))
 
 

@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from repic_tpu_torch.runtime.atomic import atomic_write
+
 FIELD = 3700.0
 GRID = 26
 
@@ -62,7 +64,7 @@ def write_synthetic_dir(
                 f"{box_size}\t{c:.6f}\n"
                 for (x, y), c in zip(xy[order], conf[order])
             ]
-            with open(os.path.join(d, name + ".box"), "w") as f:
+            with atomic_write(os.path.join(d, name + ".box"), "wt") as f:
                 f.writelines(lines)
     return names
 
@@ -142,7 +144,7 @@ def _write_rows(path, xy, conf, box):
     them, formatted in one ``%`` operation."""
     values = np.column_stack([xy, conf]).astype(np.float64).ravel()
     row = f"%.2f\t%.2f\t{box}\t{box}\t%.6f\n"
-    with open(path, "wt") as f:
+    with atomic_write(path, "wt") as f:
         f.write(row * len(conf) % tuple(values.tolist()))
 
 
@@ -180,7 +182,7 @@ def synth_box_tree(
             jitter = rng.normal(0, 15, size=base.shape)
             conf = rng.uniform(0.05, 1.0, size=n_per)
             bs = int(sizes[p])
-            with open(
+            with atomic_write(
                 os.path.join(dst, f"picker{p}", f"mic_{i:04d}.box"),
                 "wt",
             ) as f:
@@ -264,12 +266,12 @@ def write_subsets_fixture(root: str, n: int = 40, seed: int = 2):
         base = f"mic_{i:03d}"
         mrc.write_mrc(os.path.join(mrc_dir, base + ".mrc"),
                       np.zeros((8, 8), np.float32))
-        with open(os.path.join(box_dir, base + ".box"), "w") as f:
+        with atomic_write(os.path.join(box_dir, base + ".box"), "wt") as f:
             f.write("1\t1\t4\t4\t0.5\n")
         d = rng.uniform(1e4, 4e4)
         lines.append(f"{base}.mrc\t{d:.1f}\t{d:.1f}")
     defocus = os.path.join(root, "defocus.txt")
-    with open(defocus, "w") as f:
+    with atomic_write(defocus, "wt") as f:
         f.write("\n".join(lines) + "\n")
     return defocus, box_dir, mrc_dir
 

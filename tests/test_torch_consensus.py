@@ -171,7 +171,16 @@ def test_import_pulls_in_no_jax():
         " 'repic_tpu_torch.analysis.kernels',"
         " 'repic_tpu_torch.analysis.kernelcheck',"
         " 'repic_tpu_torch.analysis.dispatchcheck',"
-        " 'repic_tpu_torch.analysis.lockcheck'} <= new\n"
+        " 'repic_tpu_torch.analysis.lockcheck',"
+        " 'repic_tpu_torch.analysis.engine',"
+        " 'repic_tpu_torch.analysis.rules',"
+        " 'repic_tpu_torch.analysis.concurrency',"
+        " 'repic_tpu_torch.analysis.spmd',"
+        " 'repic_tpu_torch.analysis.cost',"
+        " 'repic_tpu_torch.analysis.semantic',"
+        " 'repic_tpu_torch.analysis.sarif',"
+        " 'repic_tpu_torch.analysis.cli',"
+        " 'repic_tpu_torch.analysis.check_cli'} <= new\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repic_tpu', 'flax', 'optax', 'pandas',"
         " 'msgpack'))\n"
@@ -246,7 +255,13 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "parallel/gang.py", "analysis/__init__.py",
                 "analysis/__main__.py", "analysis/contracts.py",
                 "analysis/kernels.py", "analysis/kernelcheck.py",
-                "analysis/dispatchcheck.py", "analysis/lockcheck.py"):
+                "analysis/dispatchcheck.py", "analysis/lockcheck.py",
+                # the static analysis layer
+                "analysis/engine.py", "analysis/rules.py",
+                "analysis/concurrency.py", "analysis/spmd.py",
+                "analysis/cost.py", "analysis/semantic.py",
+                "analysis/sarif.py", "analysis/cli.py",
+                "analysis/check_cli.py"):
         assert os.path.join(REPO, "repic_tpu_torch", mod) in files, mod
     # chip_smoke.py and the card-only tests run where there is no JAX
     files += [os.path.join(REPO, f) for f in (

@@ -1047,3 +1047,51 @@ def test_gang_of_one_on_card_matches_goldens(cuda_device, tmp_path,
             else ["fused_clique_candidates", "fused_dual_solve"])
     assert all(after[k] > before[k] for k in need), (before, after)
     assert tmk.DEMOTIONS == demoted
+
+
+@pytest.mark.cuda
+def test_check_on_card_clean(cuda_device):
+    """``check --device cuda``: every ``@checked`` entry of the port
+    checked on the card, none skipped, nothing found; its kernel probes
+    (RT423/RT425 over every rung) launch kernels 1, 2 and 3."""
+    from repic_tpu_torch.analysis.semantic import run_check
+
+    before = tcons.launch_counts()
+    report = run_check([os.path.join(REPO, "repic_tpu_torch")],
+                       device=cuda_device.type)
+    assert report.findings == [], [f.format() for f in report.findings]
+    assert report.skipped == []
+    assert len(report.checked) == 12
+    after = tcons.launch_counts()
+    assert all(after[k] > before[k] for k in after), (before, after)
+
+
+@pytest.mark.cuda
+def test_check_rt425_planted_flip_on_card(cuda_device):
+    """A flipped pick in kernel 3's contract reference on the last rung
+    fires RT425 on the card, naming the entry and the rung."""
+    import dataclasses
+
+    from repic_tpu_torch.analysis import contracts
+    from repic_tpu_torch.analysis.kernels import run_kernel_checks
+
+    entry = contracts.registry()[
+        "repic_tpu_torch.ops.megakernel.fused_dual_solve"]
+    kc = entry.contract.kernel
+    last = dict(kc.ladder[-1])
+
+    def flipped(*args):
+        picked = kc.reference(*args).clone()
+        if picked.shape[-1] == last["C"]:
+            flat = picked.view(-1)
+            flat[0] = ~flat[0]
+        return picked
+
+    broken = dataclasses.replace(entry, contract=dataclasses.replace(
+        entry.contract, kernel=dataclasses.replace(kc, reference=flipped)))
+    findings = []
+    run_kernel_checks(broken, "megakernel.py", findings,
+                      lambda r: r == "RT425", device=cuda_device.type)
+    assert [f.rule for f in findings] == ["RT425"]
+    assert "fused_dual_solve" in findings[0].message
+    assert f"rung {last}" in findings[0].message

@@ -36,6 +36,29 @@ def test_all_equals_reference(sub):
         assert getattr(port, name) is not None, name
 
 
+def test_analysis_exports_the_reference_names():
+    """``repic_tpu_torch.analysis`` exports every name of the
+    reference's ``__all__``, each resolving, plus the runtime
+    sanitizers' own (the registry and the kernel contract) -- and
+    importing it pulls in no torch."""
+    ref = importlib.import_module("repic_tpu.analysis")
+    port = importlib.import_module("repic_tpu_torch.analysis")
+    assert set(ref.__all__) <= set(port.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    assert set(port.__all__) - set(ref.__all__) == {
+        "CheckedEntry", "KernelContract", "differential_probe",
+        "dispatchcheck", "kernelcheck", "lockcheck", "registry"}
+    code = ("import sys\nimport repic_tpu_torch.analysis as a\n"
+            "assert a.run_paths and a.run_concurrency\n"
+            "print('torch' in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+
+
 def test_runtime_imports_only_the_stdlib():
     code = ("import sys\nimport repic_tpu_torch.runtime as r\n"
             "assert r.ClusterConfig and r.ClusterContext\n"

@@ -2,8 +2,9 @@
 its ``@checked`` registry, held to the JAX package's.
 
 The three KERNELCHECK cases of ``tests/test_analysis_spmd.py`` (that
-file's other cases are the static layer, ROADMAP Queue 1 item 9b) as
-they read against the port: the real registry probes clean, a broken
+file's other cases are the static layer's, ported in
+``tests/test_torch_analysis_spmd.py`` and ``_semantic.py``) as they
+read against the port: the real registry probes clean, a broken
 kernel is caught, the environment variable gates the armed probe.  On
 the CPU each kernel wrapper runs its plain version, so the probe holds
 two independent torch implementations against each other (the card
