@@ -1,0 +1,10 @@
+"""consensus.fetch_ms_per_mic: the program's ``consensus_fetch`` range (the
+packing of the result and its fetch to the host), timed on the device's
+clock while the profiler records, summed over the traced window's
+chunks, per micrograph."""
+
+from portbench import reports
+
+
+def read(ctx):
+    return reports.stage_ms_per_mic(ctx, "consensus_fetch")

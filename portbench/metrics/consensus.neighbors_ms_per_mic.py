@@ -1,0 +1,10 @@
+"""consensus.neighbors_ms_per_mic: the program's ``consensus_neighbors``
+range (the dense or bucketed neighbour search), timed on the device's
+clock while the profiler records, summed over the traced window's
+chunks, per micrograph."""
+
+from portbench import reports
+
+
+def read(ctx):
+    return reports.stage_ms_per_mic(ctx, "consensus_neighbors")

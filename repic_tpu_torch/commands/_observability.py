@@ -25,7 +25,14 @@ def add_observability_arguments(
         metavar="DIR",
         help="write a torch.profiler trace of host and CUDA activity "
         "to DIR (TensorBoard layout; `report` parses it into the "
-        "device-time section)",
+        "device-time section).  The trace shows every telemetry span "
+        "as a range and, inside each consensus_dispatch, the chunk "
+        "program's six stages: consensus_neighbors, consensus_join, "
+        "consensus_compact, consensus_ascent, consensus_rounding, "
+        "consensus_fetch.  The profiler records only its own thread: "
+        "set REPIC_TPU_NO_PREFETCH=1 to run the chunks there.  Each "
+        "stage's time on the device (a chunk's stage_ms) is measured "
+        "only while a profiler records",
     )
     parser.add_argument(
         "--device-time",

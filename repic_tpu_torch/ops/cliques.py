@@ -22,7 +22,10 @@ product, compacted per chunk (N > ``anchor_chunk``); and the staged
 join, one picker at a time with compaction between stages (D^(K-1) >
 256).  :func:`enumerate_cliques_bucketed` takes its neighbour lists
 from the spatial hash of :mod:`~repic_tpu_torch.ops.spatial` instead
-of the dense IoU matrices.
+of the dense IoU matrices.  The neighbour search and the assembly are
+the ``consensus_neighbors`` and ``consensus_join`` ranges of a
+profiler trace (:func:`~repic_tpu_torch.utils.tracing.annotate`), and
+each boolean-mask select of a compaction is a counted host sync.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import torch
 
 from repic_tpu_torch.ops.iou import pair_iou_xy, pairwise_iou_matrix
 from repic_tpu_torch.ops.iou_pallas import MAX_D, topk_neighbors
+from repic_tpu_torch.telemetry import probes as tlm_probes
+from repic_tpu_torch.utils.tracing import annotate
 
 DEFAULT_THRESHOLD = 0.3
 
@@ -167,35 +172,37 @@ def enumerate_cliques(
             stacklevel=2,
         )
         use_pallas = False
-    if use_pallas:
-        b = m * (k - 1)
-        # a Python number travels as a kernel argument; per-picker
-        # sizes as the per-item views of `sizes`, on xy's device
-        if isinstance(box_size, numbers.Real):
-            sa = sb = box_size
+    with annotate("consensus_neighbors", timed=True):
+        if use_pallas:
+            b = m * (k - 1)
+            # a Python number travels as a kernel argument; per-picker
+            # sizes as the per-item views of `sizes`, on xy's device
+            if isinstance(box_size, numbers.Real):
+                sa = sb = box_size
+            else:
+                sa, sb = sizes[0].expand(b), sizes[1:].repeat(m)
+            v, i, adj = topk_neighbors(
+                xy[:, :1].expand(m, k - 1, n, 2).reshape(b, n, 2),
+                mask[:, :1].expand(m, k - 1, n).reshape(b, n),
+                xy[:, 1:].reshape(b, n, 2),
+                mask[:, 1:].reshape(b, n),
+                sa, sb,
+                d=d, threshold=threshold,
+            )
+            v = v.reshape(m, k - 1, n, d)
+            i = i.reshape(m, k - 1, n, d)
+            nbr_iou = [v[:, s] for s in range(k - 1)]
+            nbr_idx = [i[:, s] for s in range(k - 1)]
+            max_adj = adj.reshape(m, (k - 1) * n).amax(-1)
         else:
-            sa, sb = sizes[0].expand(b), sizes[1:].repeat(m)
-        v, i, adj = topk_neighbors(
-            xy[:, :1].expand(m, k - 1, n, 2).reshape(b, n, 2),
-            mask[:, :1].expand(m, k - 1, n).reshape(b, n),
-            xy[:, 1:].reshape(b, n, 2),
-            mask[:, 1:].reshape(b, n),
-            sa, sb,
-            d=d, threshold=threshold,
+            nbr_iou, nbr_idx, max_adj = dense_neighbors(
+                xy, mask, sizes, threshold, d
+            )
+    with annotate("consensus_join", timed=True):
+        return _assemble(
+            xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
+            _zeros_m(xy), d, clique_capacity, anchor_chunk, partial_capacity,
         )
-        v = v.reshape(m, k - 1, n, d)
-        i = i.reshape(m, k - 1, n, d)
-        nbr_iou = [v[:, s] for s in range(k - 1)]
-        nbr_idx = [i[:, s] for s in range(k - 1)]
-        max_adj = adj.reshape(m, (k - 1) * n).amax(-1)
-    else:
-        nbr_iou, nbr_idx, max_adj = dense_neighbors(
-            xy, mask, sizes, threshold, d
-        )
-    return _assemble(
-        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
-        _zeros_m(xy), d, clique_capacity, anchor_chunk, partial_capacity,
-    )
 
 
 def enumerate_cliques_bucketed(
@@ -224,14 +231,16 @@ def enumerate_cliques_bucketed(
         )
     d = min(max_neighbors, n)
     sizes = _per_picker_sizes(box_size, k, xy.dtype, xy.device)
-    nbr_iou, nbr_idx, max_adj, max_cell = bucketed_pair_neighbors(
-        xy, mask, sizes, grid=grid, cell_capacity=cell_capacity,
-        threshold=threshold, d=d,
-    )
-    return _assemble(
-        xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
-        max_cell, d, clique_capacity, anchor_chunk, partial_capacity,
-    )
+    with annotate("consensus_neighbors", timed=True):
+        nbr_iou, nbr_idx, max_adj, max_cell = bucketed_pair_neighbors(
+            xy, mask, sizes, grid=grid, cell_capacity=cell_capacity,
+            threshold=threshold, d=d,
+        )
+    with annotate("consensus_join", timed=True):
+        return _assemble(
+            xy, conf, mask, sizes, threshold, nbr_idx, nbr_iou, max_adj,
+            max_cell, d, clique_capacity, anchor_chunk, partial_capacity,
+        )
 
 
 def _assemble(
@@ -453,6 +462,8 @@ def _stream_compact(block: dict, keep: int) -> dict:
         )
         buf.index_copy_(0, flat[ok.reshape(-1)], src[ok.reshape(-1)])
         out[name] = buf.reshape((m, keep + 1) + tail)[:, :keep]
+    # each field's two boolean-mask selects read the mask's count
+    tlm_probes.note_host_sync(2 * len(block))
     return out
 
 

@@ -349,7 +349,10 @@ def fused_clique_candidates(
     _check(mask, torch.bool, (m, k, n), dev, "mask")
     xy = _build.aligned(xy)
     conf, mask = conf.contiguous(), mask.contiguous()
-    # the box edges travel as kernel arguments (no copy to the card)
+    # the box edges travel as kernel arguments (no copy to the card);
+    # edges held in a card tensor are read back first
+    if isinstance(box_size, torch.Tensor) and box_size.device.type != "cpu":
+        telemetry.probes.note_host_sync()
     sizes = (ctypes.c_float * k)(*_per_picker_sizes(
         box_size, k, torch.float32, "cpu").tolist())
     i32, f32 = torch.int32, torch.float32

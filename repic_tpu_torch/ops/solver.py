@@ -9,8 +9,10 @@ reproduces sequential greedy in (w desc, index asc) order as rounds of
 scatter-``amax``/scatter-``amin``: each round selects every clique
 that is the (weight, index) winner at all of its vertices, then drops
 the cliques touching a selected vertex.  Padded and dead cliques
-scatter into a sentinel slot V.  Batched over any leading axes, as is
-:func:`solve_lp_rounding` (subgradient prices, then greedy rounding).
+scatter into a sentinel slot V; each round's loop test is one counted
+host sync (:mod:`repic_tpu_torch.telemetry.probes`).  Batched over any
+leading axes, as is :func:`solve_lp_rounding` (subgradient prices,
+then greedy rounding).
 :func:`solve_exact` is host numpy/C++: branch-and-bound over the
 connected components of the conflict graph.
 """
@@ -24,6 +26,7 @@ import torch
 
 from repic_tpu_torch import telemetry
 from repic_tpu_torch.analysis.contracts import Contract, checked, spec
+from repic_tpu_torch.telemetry import probes as tlm_probes
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -83,7 +86,7 @@ def solve_greedy(
     neg_inf = torch.tensor(float("-inf"), dtype=w.dtype, device=dev)
     alive = valid.reshape(b, c) & (w > 0)
     picked = torch.zeros_like(alive)
-    while bool(alive.any()):
+    while tlm_probes.host_bool(alive.any()):
         wa = torch.where(alive, w, neg_inf)
         keep = alive.repeat_interleave(k, dim=1)
         tgt = torch.where(keep, mv, sentinel)

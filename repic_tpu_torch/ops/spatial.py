@@ -28,6 +28,7 @@ import torch
 
 from repic_tpu_torch.ops.cliques import _gather_rows
 from repic_tpu_torch.ops.iou import pair_iou_xy
+from repic_tpu_torch.telemetry import probes as tlm_probes
 
 #: anchors per neighbour-search block
 ANCHOR_CHUNK = 4096
@@ -102,6 +103,8 @@ def bucket_particles(
     flat = slot + torch.arange(m, device=dev)[:, None] * width
     table = torch.full((m * width,), n, dtype=torch.int32, device=dev)
     table[flat[ok]] = order[ok].to(torch.int32)
+    # the two boolean-mask selects read the mask's count to the host
+    tlm_probes.note_host_sync(2)
     table = table.reshape(m, width)[:, :-1].reshape(m, g * g, b)
     return BucketTable(table=table, cell_ij=ij, max_count=max_count, grid=g)
 

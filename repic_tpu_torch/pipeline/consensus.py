@@ -46,7 +46,12 @@ counters in ``_metrics.json`` / ``_metrics.prom``, a synthetic root
 trace with the ``load`` / ``compile`` / ``execute`` / ``emit``
 segments in ``_trace.jsonl``, and the ``/status`` progress of the
 status server.  Every accepted chunk journals a ``chunk_dispatches``
-event: its kernel launches plus device-to-host fetches.
+event: its kernel launches plus device-to-host fetches.  Under a
+profiler (``consensus --profile``) each span is a range of the trace,
+and the chunk program's six stages (``consensus_neighbors``,
+``consensus_join``, ``consensus_compact``, ``consensus_ascent``,
+``consensus_rounding``, ``consensus_fetch``) are ranges inside
+``consensus_dispatch``, timed on the device (:func:`consume_dispatch_report`).
 
 A chunk runs over a mesh of devices (:mod:`repic_tpu_torch.parallel.mesh`):
 one contiguous slice of its micrographs per device, the results
@@ -65,6 +70,7 @@ watchdog, and a peer lost mid-collective re-forms a smaller gang
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -130,7 +136,7 @@ from repic_tpu_torch.telemetry import probes as tlm_probes
 from repic_tpu_torch.telemetry import server as tlm_server
 from repic_tpu_torch.telemetry import trace as tlm_trace
 from repic_tpu_torch.utils import box_io
-from repic_tpu_torch.utils.tracing import StageTimer, annotate
+from repic_tpu_torch.utils.tracing import StageTimer, annotate, stage_clock
 
 _log = tlm_events.get_logger("consensus")
 
@@ -171,19 +177,61 @@ _PROGRAM_MISSES = telemetry.counter(
 #: the (configuration, input shape) signatures this process has run
 _PROGRAM_SIGNATURES: set = set()
 
-#: the last accepted chunk's dispatch count, per thread: the prefetch
+#: the last accepted chunk's dispatch report, per thread: the prefetch
 #: worker runs the whole chunk generator on one thread, so the batch
 #: that sets it and the loop that journals it share the slot
 _DISPATCH_REPORT = threading.local()
+#: the last accepted chunks' reports over every thread, newest last
+_RECENT_REPORTS: collections.deque = collections.deque(maxlen=64)
+_RECENT_LOCK = threading.Lock()
+#: the fields of the journaled ``chunk_dispatches`` event (the
+#: reference's four)
+JOURNAL_DISPATCH_FIELDS = ("entry", "dispatches", "micrographs", "solver")
 
 
 def consume_dispatch_report() -> dict | None:
-    """Pop the calling thread's last accepted chunk's dispatch report
-    (``entry``, ``dispatches``, ``micrographs``, ``solver``) set by
-    :func:`run_consensus_batch`, or None."""
+    """Pop the calling thread's last accepted chunk's dispatch report,
+    set by :func:`run_consensus_batch`, or None.
+
+    ``entry``, ``dispatches`` (kernel launches plus device-to-host
+    fetches of the accepted attempt), ``micrographs`` and ``solver``
+    are what the run journal records.  The rest covers the whole
+    batch, rejected attempts included, since their time is spent:
+
+    * ``attempts`` -- 1 plus the capacity escalations;
+    * ``host_syncs`` -- blocking device-to-host reads: the first-visit
+      probes, each test of the dual ascent's and the greedy rounds'
+      loops, the compactions' boolean-mask selects, the packed fetch;
+    * ``ascent_steps`` -- trips of the ``lp_device`` dual ascent;
+    * ``stage_ms`` -- only while a profiler records on this thread
+      (``consensus --profile DIR``, with ``REPIC_TPU_NO_PREFETCH=1`` so
+      the chunks run on the profiled thread) and the chunk runs on one
+      device: milliseconds on the device's clock of each stage range,
+      ``consensus_neighbors``, ``consensus_join``,
+      ``consensus_compact``, ``consensus_ascent``,
+      ``consensus_rounding``, ``consensus_fetch``.  A path that runs
+      no such stage (the fused kernels; the ``greedy`` and ``lp``
+      solvers have no ascent or rounding range) lacks its key.
+    """
     report = getattr(_DISPATCH_REPORT, "report", None)
     _DISPATCH_REPORT.report = None
     return report
+
+
+def recent_dispatch_reports(n: int) -> list[dict]:
+    """The last ``n`` accepted chunks' dispatch reports (at most 64),
+    oldest first, over every thread; the per-thread slot of
+    :func:`consume_dispatch_report` is left as it is."""
+    if n <= 0:
+        return []
+    with _RECENT_LOCK:
+        return list(_RECENT_REPORTS)[-n:]
+
+
+def _journal_dispatches(journal, report: dict) -> None:
+    journal.record_event(
+        "chunk_dispatches",
+        **{key: report[key] for key in JOURNAL_DISPATCH_FIELDS})
 
 
 def launch_counts() -> dict:
@@ -396,8 +444,10 @@ def consensus_one(
             partial_capacity=partial_capacity,
         )
     num_cliques = cs.num_valid
-    cs = compact_cliques(cs, clique_capacity)
-    vid, num_vertices = pack_cliques_for_solver(cs.member_idx, cs.valid, n)
+    with annotate("consensus_compact", timed=True):
+        cs = compact_cliques(cs, clique_capacity)
+        vid, num_vertices = pack_cliques_for_solver(
+            cs.member_idx, cs.valid, n)
     if use_megakernel:
         picked = megakernel.fused_dual_solve(
             vid, cs.w, cs.valid, num_vertices
@@ -836,8 +886,11 @@ def run_consensus_batch(
     A capacity that overflows re-runs the batch at the observed
     requirement.  ``mesh`` (a tuple of devices, the first of them
     ``device``) splits the chunk program over its devices
-    (:func:`consensus_over_mesh`).  The accepted attempt's kernel
-    launches and fetches are left for :func:`consume_dispatch_report`.
+    (:func:`consensus_over_mesh`).  The batch's dispatch report (the
+    accepted attempt's kernel launches and fetches, the attempts, host
+    syncs and ascent steps, and under a profiler the stage split) is
+    left for :func:`consume_dispatch_report` and
+    :func:`recent_dispatch_reports`.
 
     A gang chunk (:func:`_run_gang`) passes the last three together:
     ``capacities`` ``(d, cap, cell_cap, pcap)`` and the spatial
@@ -847,6 +900,8 @@ def run_consensus_batch(
     maximum, so that every process escalates in step, and
     :func:`gang_consensus_chunk` runs the attempt.
     """
+    # the batch's marks: its probes and every attempt count
+    sync_mark, step_mark = tlm_probes.chunk_counts()
     dev = resolve_device(device)
     if mesh is not None and len(mesh) > 1:
         dev = torch.device(mesh[0])
@@ -888,20 +943,23 @@ def run_consensus_batch(
         grid = grid_size(extent + max_size, max_size)
         if known is None:
             cell = cell_probe(dbatch.xy, dbatch.mask, box_arg, grid)
-            cell_cap = _next_bucket(max(int(cell.max()), 2))
+            cell_cap = _next_bucket(max(tlm_probes.host_int(cell.max()), 2))
             adj = spatial_probe(dbatch.xy, dbatch.mask, box_arg, grid,
                                 cell_cap, threshold)
-            d = _next_bucket(max(int(adj.max()), 2))
+            d = _next_bucket(max(tlm_probes.host_int(adj.max()), 2))
     elif known is None:
         adj = dense_probe(dbatch.xy, dbatch.mask, box_arg, threshold)
-        d = _next_bucket(max(int(adj.max()), 2))
+        d = _next_bucket(max(tlm_probes.host_int(adj.max()), 2))
     if known is not None:
         d, cap, cell_cap, pcap = known
     pack = _pack_full_result if full else _pack_box_outputs
     program = (consensus_over_mesh if reduce_probes is None
                else gang_consensus_chunk)
     n_real = sum(1 for n in batch.names if n)
+    attempts = 0
+    stage_ms = collections.Counter()
     while True:
+        attempts += 1
         # the dispatch window of this attempt: a rejected (escalated)
         # attempt and the first-visit probes above are not counted
         launch_mark, fetch_mark = _dispatch_marks()
@@ -913,13 +971,12 @@ def run_consensus_batch(
             _PROGRAM_SIGNATURES.add(sig)
             _PROGRAM_MISSES.inc()
             _persist_program_signature(sig, box_rank=sizes.ndim)
-        # The span closes after the launches and before the blocking
-        # fetch: under --device-time its host_s is the host's issue
-        # work and its device_tail_s the chunk's device execution (the
-        # fetch would drain the device before the span closed).
-        with tlm_events.span("consensus_dispatch",
-                             micrographs=int(batch.xy.shape[0]),
-                             capacity=batch.capacity):
+        with (
+            stage_clock(None if mesh else dev) as clock,
+            tlm_events.span("consensus_dispatch",
+                            micrographs=int(batch.xy.shape[0]),
+                            capacity=batch.capacity) as dispatch,
+        ):
             res = program(
                 dbatch.xy, dbatch.conf, dbatch.mask, box_arg, mesh=mesh,
                 threshold=threshold,
@@ -931,11 +988,23 @@ def run_consensus_batch(
                 use_pallas=use_pallas,
                 partial_capacity=pcap,
             )
-            out = pack(res)
-            tlm_probes.note_dispatch()
-        # the one packed fetch of the chunk: its probes size a retry
-        # only on the rare escalation, not a per-item ladder
-        packed = out.cpu().numpy()  # repic: noqa[RT502]
+            with annotate("consensus_fetch", timed=True):
+                out = pack(res)
+                tlm_probes.note_dispatch()
+                # The span's clock stops after the launches and before
+                # the blocking fetch: under --device-time its host_s is
+                # the host's issue work and its device_tail_s the
+                # chunk's device execution (the fetch would drain the
+                # device first).  The fetch still nests in its range.
+                dispatch.stop()
+                # the one packed fetch of the chunk: its probes size a
+                # retry only on the rare escalation, not a per-item
+                # ladder
+                packed = out.cpu().numpy()  # repic: noqa[RT502]
+                tlm_probes.note_host_sync()
+            if clock is not None:
+                clock.resolve()
+                stage_ms.update(clock.ms)
         telemetry.record_transfer(packed.nbytes)
         probes = _packed_probes(packed).max(axis=0)
         if reduce_probes is not None:
@@ -965,12 +1034,21 @@ def run_consensus_batch(
                 entry = "repic_tpu_torch.ops.megakernel.fused_clique_candidates"
         launch_now, fetch_now = _dispatch_marks()
         dispatches = (launch_now - launch_mark) + (fetch_now - fetch_mark)
-        _DISPATCH_REPORT.report = {
+        syncs, steps = tlm_probes.chunk_counts()
+        report = {
             "entry": entry,
             "dispatches": dispatches,
             "micrographs": n_real,
             "solver": solver,
+            "attempts": attempts,
+            "host_syncs": syncs - sync_mark,
+            "ascent_steps": steps - step_mark,
         }
+        if stage_ms:
+            report["stage_ms"] = dict(stage_ms)
+        _DISPATCH_REPORT.report = report
+        with _RECENT_LOCK:
+            _RECENT_REPORTS.append(report)
         if dispatchcheck.installed():
             dispatchcheck.note_chunk(entry, dispatches, solver=solver,
                                      micrographs=n_real)
@@ -1151,18 +1229,16 @@ def _iter_chunks_serial(
         info.update(chunk=chunk, capacity=nb)
 
     def _execute(cbatch):
-        # a named range in a --profile trace
-        with annotate("consensus_batch"):
-            res, packed = run_consensus_batch(
-                cbatch, box_size, threshold=threshold,
-                max_neighbors=max_neighbors, spatial=spatial, solver=solver,
-                use_pallas=use_pallas, device=dev, full=fetch, mesh=mesh,
-            )
-            if not fetch:
-                return res, packed
-            extras = (extra_device_outputs(cbatch)
-                      if extra_device_outputs is not None else None)
-            return _unpack_full_result(packed, k), extras
+        res, packed = run_consensus_batch(
+            cbatch, box_size, threshold=threshold,
+            max_neighbors=max_neighbors, spatial=spatial, solver=solver,
+            use_pallas=use_pallas, device=dev, full=fetch, mesh=mesh,
+        )
+        if not fetch:
+            return res, packed
+        extras = (extra_device_outputs(cbatch)
+                  if extra_device_outputs is not None else None)
+        return _unpack_full_result(packed, k), extras
 
     def _finished(part, cbatch, res, extras, t1):
         if finish is not None:
@@ -1229,7 +1305,7 @@ def _iter_chunks_serial(
             _CHUNKS.inc()
             report = consume_dispatch_report()
             if journal is not None and report is not None:
-                journal.record_event("chunk_dispatches", **report)
+                _journal_dispatches(journal, report)
         except Exception as e:  # noqa: BLE001 — routed to the ladder
             kind = classify_error(e)
             if kind == "oom" and chunk > n_dev:
@@ -2446,7 +2522,7 @@ def _run_gang(todo_all, sup, load, out_dir, box_size, pickers, stats,
                 _CHUNKS.inc()
                 report = consume_dispatch_report()
                 if report is not None:
-                    journal.record_event("chunk_dispatches", **report)
+                    _journal_dispatches(journal, report)
                 tlm_trace.add_segment(
                     "execute", t1, chunk_s, chunk=stats["chunks"],
                     gang_epoch=sup.epoch, micrographs=len(part),

@@ -13,6 +13,12 @@ Per micrograph, for the packing problem ``max w.x  s.t.  A x <= 1``:
 3. The best of the three by true objective, the first on a tie (so
    never worse than plain greedy).
 
+Steps 1 and 2 are the ``consensus_ascent`` and ``consensus_rounding``
+ranges of a profiler trace (:func:`~repic_tpu_torch.utils.tracing.
+annotate`); each test of the ascent's loop is a counted host sync and
+each trip a counted ascent step (:mod:`repic_tpu_torch.telemetry.
+probes`).
+
 The reference runs one ``while_loop`` per micrograph under ``vmap``;
 here the ``(M, C)`` batch steps together and a row that has stopped
 is frozen, which is what the vmapped loop does.
@@ -34,6 +40,8 @@ import torch
 from repic_tpu_torch import telemetry
 from repic_tpu_torch.analysis.contracts import Contract, checked, spec
 from repic_tpu_torch.ops.solver import solve_greedy
+from repic_tpu_torch.telemetry import probes as tlm_probes
+from repic_tpu_torch.utils.tracing import annotate
 
 DEFAULT_NUM_ITERS = 200
 DEFAULT_TOL = 1e-3
@@ -134,88 +142,91 @@ def solve_dual_decomposition(
         valid: ``(M, C)`` bool; padded rows are inert.
         num_vertices: vertex-space size V.
     """
-    b, c, k = member_vertex.shape
-    v_ = num_vertices
-    dev = w.device
-    f32 = torch.float32
-    mv = member_vertex.long()
-    zero = torch.zeros((), dtype=f32, device=dev)
-    wv = torch.where(valid, w, zero)
-    tgt = torch.where(
-        valid[..., None].expand(b, c, k), mv, torch.full_like(mv, v_)
-    ).reshape(b, c * k)
-    eta0 = torch.maximum(
-        wv.amax(-1), torch.tensor(1e-6, dtype=f32, device=dev)
-    )
-    tol_t = torch.tensor(tol, dtype=f32, device=dev)
-    half = num_iters // 2
+    with annotate("consensus_ascent", timed=True):
+        b, c, k = member_vertex.shape
+        v_ = num_vertices
+        dev = w.device
+        f32 = torch.float32
+        mv = member_vertex.long()
+        zero = torch.zeros((), dtype=f32, device=dev)
+        wv = torch.where(valid, w, zero)
+        tgt = torch.where(
+            valid[..., None].expand(b, c, k), mv, torch.full_like(mv, v_)
+        ).reshape(b, c * k)
+        eta0 = torch.maximum(
+            wv.amax(-1), torch.tensor(1e-6, dtype=f32, device=dev)
+        )
+        tol_t = torch.tensor(tol, dtype=f32, device=dev)
+        half = num_iters // 2
 
-    t = torch.zeros(b, dtype=torch.int32, device=dev)
-    lam = torch.zeros((b, v_), dtype=f32, device=dev)
-    lam_sum = torch.zeros_like(lam)
-    n_tail = torch.zeros(b, dtype=torch.int32, device=dev)
-    delta = torch.full((b,), float("inf"), dtype=f32, device=dev)
-    active = (t < num_iters) & (delta > tol_t)
-    while bool(active.any()):
-        red = wv - gather_sum(lam, mv)
-        x = (red > 0.0) & valid
-        ax = torch.zeros((b, v_ + 1), dtype=f32, device=dev).scatter_add(
-            1, tgt, x[..., None].expand(b, c, k).reshape(b, c * k).to(f32)
-        )[:, :v_]
-        eta = eta0 / (1.0 + t.to(f32))
-        lam_new = price_step(lam, eta, ax)
-        d_new = (lam_new - lam).abs().amax(-1) / eta0
-        in_tail = t >= half
-        sum_new = torch.where(in_tail[:, None], lam_sum + lam_new, lam_sum)
-        act = active[:, None]
-        lam = torch.where(act, lam_new, lam)
-        lam_sum = torch.where(act, sum_new, lam_sum)
-        n_tail = n_tail + (active & in_tail).to(torch.int32)
-        delta = torch.where(active, d_new, delta)
-        t = t + active.to(torch.int32)
+        t = torch.zeros(b, dtype=torch.int32, device=dev)
+        lam = torch.zeros((b, v_), dtype=f32, device=dev)
+        lam_sum = torch.zeros_like(lam)
+        n_tail = torch.zeros(b, dtype=torch.int32, device=dev)
+        delta = torch.full((b,), float("inf"), dtype=f32, device=dev)
         active = (t < num_iters) & (delta > tol_t)
-    lam_avg = torch.where(
-        (n_tail > 0)[:, None],
-        lam_sum / torch.clamp_min(n_tail, 1).to(f32)[:, None],
-        lam,
-    )
+        while tlm_probes.host_bool(active.any()):
+            tlm_probes.note_ascent_step()
+            red = wv - gather_sum(lam, mv)
+            x = (red > 0.0) & valid
+            ax = torch.zeros((b, v_ + 1), dtype=f32, device=dev).scatter_add(
+                1, tgt, x[..., None].expand(b, c, k).reshape(b, c * k).to(f32)
+            )[:, :v_]
+            eta = eta0 / (1.0 + t.to(f32))
+            lam_new = price_step(lam, eta, ax)
+            d_new = (lam_new - lam).abs().amax(-1) / eta0
+            in_tail = t >= half
+            sum_new = torch.where(in_tail[:, None], lam_sum + lam_new, lam_sum)
+            act = active[:, None]
+            lam = torch.where(act, lam_new, lam)
+            lam_sum = torch.where(act, sum_new, lam_sum)
+            n_tail = n_tail + (active & in_tail).to(torch.int32)
+            delta = torch.where(active, d_new, delta)
+            t = t + active.to(torch.int32)
+            active = (t < num_iters) & (delta > tol_t)
+        lam_avg = torch.where(
+            (n_tail > 0)[:, None],
+            lam_sum / torch.clamp_min(n_tail, 1).to(f32)[:, None],
+            lam,
+        )
 
-    # three candidates as one (3M) batch: zero, final, averaged prices
-    prices3 = torch.cat([torch.zeros_like(lam), lam, lam_avg])
-    mv3 = mv.repeat(3, 1, 1)
-    valid3 = valid.repeat(3, 1)
-    wv3 = wv.repeat(3, 1)
-    w3 = w.repeat(3, 1)
-    red3 = wv3 - gather_sum(prices3, mv3)
-    prio0 = torch.where(valid3, red3, torch.full_like(red3, -1.0))
-    sel0 = solve_greedy(mv3, prio0, valid3, v_)
-    used = torch.zeros((3 * b, v_ + 1), dtype=torch.bool, device=dev)
-    sel_rep = sel0[..., None].expand(3 * b, c, k).reshape(3 * b, c * k)
-    used.scatter_(
-        1, torch.where(sel_rep, mv3.reshape(3 * b, c * k),
-                       torch.full_like(mv3.reshape(3 * b, c * k), v_)),
-        sel_rep,
-    )
-    hit = torch.gather(used, 1, mv3.reshape(3 * b, c * k))
-    free = valid3 & ~sel0 & ~hit.reshape(3 * b, c, k).any(-1)
-    sel1 = solve_greedy(mv3, w3, free, v_)
-    cands = (sel0 | sel1).reshape(3, b, c)
-    reps = sel1.sum(-1, dtype=torch.int32).reshape(3, b)
-    vals = objective_sum(
-        torch.where(cands, wv[None], zero).reshape(3 * b, c)
-    ).reshape(3, b)
-    pick = torch.argmax(vals, dim=0)        # first maximum: greedy
-    rows = torch.arange(b, device=dev)
-    best = cands[pick, rows]
-    best_rep = torch.where(
-        pick > 0, reps[pick, rows], torch.zeros_like(reps[0])
-    )
-    best_val = vals[pick, rows]
+    with annotate("consensus_rounding", timed=True):
+        # three candidates as one (3M) batch: zero, final, averaged prices
+        prices3 = torch.cat([torch.zeros_like(lam), lam, lam_avg])
+        mv3 = mv.repeat(3, 1, 1)
+        valid3 = valid.repeat(3, 1)
+        wv3 = wv.repeat(3, 1)
+        w3 = w.repeat(3, 1)
+        red3 = wv3 - gather_sum(prices3, mv3)
+        prio0 = torch.where(valid3, red3, torch.full_like(red3, -1.0))
+        sel0 = solve_greedy(mv3, prio0, valid3, v_)
+        used = torch.zeros((3 * b, v_ + 1), dtype=torch.bool, device=dev)
+        sel_rep = sel0[..., None].expand(3 * b, c, k).reshape(3 * b, c * k)
+        used.scatter_(
+            1, torch.where(sel_rep, mv3.reshape(3 * b, c * k),
+                           torch.full_like(mv3.reshape(3 * b, c * k), v_)),
+            sel_rep,
+        )
+        hit = torch.gather(used, 1, mv3.reshape(3 * b, c * k))
+        free = valid3 & ~sel0 & ~hit.reshape(3 * b, c, k).any(-1)
+        sel1 = solve_greedy(mv3, w3, free, v_)
+        cands = (sel0 | sel1).reshape(3, b, c)
+        reps = sel1.sum(-1, dtype=torch.int32).reshape(3, b)
+        vals = objective_sum(
+            torch.where(cands, wv[None], zero).reshape(3 * b, c)
+        ).reshape(3, b)
+        pick = torch.argmax(vals, dim=0)        # first maximum: greedy
+        rows = torch.arange(b, device=dev)
+        best = cands[pick, rows]
+        best_rep = torch.where(
+            pick > 0, reps[pick, rows], torch.zeros_like(reps[0])
+        )
+        best_val = vals[pick, rows]
 
-    red_final = wv - gather_sum(lam, mv)
-    bound = torch.where(valid, red_final.clamp_min(0.0), zero).sum(-1) \
-        + lam.sum(-1)
-    gap = (bound - best_val).clamp_min(0.0) / bound.clamp_min(1e-6)
+        red_final = wv - gather_sum(lam, mv)
+        bound = torch.where(valid, red_final.clamp_min(0.0), zero).sum(-1) \
+            + lam.sum(-1)
+        gap = (bound - best_val).clamp_min(0.0) / bound.clamp_min(1e-6)
     return DualSolveStats(
         picked=best,
         iterations=t,

@@ -9,7 +9,9 @@
   (:mod:`repic_tpu_torch.telemetry.probes`), and, while a run log is
   active, appends one JSONL record.  Under ``--device-time`` a span
   syncs the device on entry and exit and records ``host_s`` and
-  ``device_tail_s``.
+  ``device_tail_s``.  While a profiler records, a span is also a
+  named range in its trace (:func:`~repic_tpu_torch.utils.tracing.
+  annotate`); the event log and the registry see nothing of that.
 * **Events** (:func:`event`) -- point-in-time records (a capacity
   escalation, the profiler's trace directory) in the same stream.
 * **Leveled structured logger** (:func:`get_logger`) -- messages keep
@@ -26,7 +28,6 @@ Record shapes (one JSON object per line, ``run`` = run id)::
 
 from __future__ import annotations
 
-import contextlib
 import contextvars
 import itertools
 import json
@@ -38,6 +39,7 @@ import uuid
 
 from repic_tpu_torch.telemetry import metrics, probes
 from repic_tpu_torch.telemetry import trace as _trace
+from repic_tpu_torch.utils import tracing as _tracing
 
 EVENTS_NAME = "_events.jsonl"
 
@@ -141,7 +143,7 @@ class _Span:
 
     __slots__ = (
         "name", "attrs", "span_id", "parent_id",
-        "_t0", "_wall0", "_c0", "_token",
+        "_t0", "_wall0", "_c0", "_token", "_range", "_stopped",
     )
 
     def __init__(self, name: str, attrs: dict):
@@ -157,12 +159,15 @@ class _Span:
             # drain device work queued BEFORE this span so an earlier
             # stage's async tail is not attributed to this one
             probes.sync_device()
+        self._stopped = None
+        self._range = _tracing.annotate(self.name)
+        self._range.__enter__()
         self._c0 = probes.counters()
         self._wall0 = time.time()
         self._t0 = time.perf_counter()
         return self
 
-    def __exit__(self, exc_type, exc, tb):
+    def _measure(self) -> tuple:
         host_dur = time.perf_counter() - self._t0
         # Device-time attribution (opt-in, --device-time): block until
         # the device drained, splitting the span into the host-side
@@ -174,6 +179,17 @@ class _Span:
             if probes.device_time_enabled()
             else None
         )
+        return host_dur, tail, probes.counters()
+
+    def stop(self) -> None:
+        """End the span's measurement here: its duration, device-time
+        split and counter deltas.  The rest of the block still nests
+        in the span (its profiler range, its children's parent)."""
+        if self._stopped is None:
+            self._stopped = self._measure()
+
+    def __exit__(self, exc_type, exc, tb):
+        host_dur, tail, c1 = self._stopped or self._measure()
         dur = host_dur if tail is None else host_dur + tail
         _SPAN_STACK.reset(self._token)
         _SPAN_SECONDS.observe(dur, name=self.name)
@@ -188,7 +204,6 @@ class _Span:
             }
             if self.parent_id is not None:
                 rec["parent"] = self.parent_id
-            c1 = probes.counters()
             if c1[0] != self._c0[0]:
                 rec["recompiles"] = c1[0] - self._c0[0]
             if c1[1] != self._c0[1]:
@@ -204,10 +219,26 @@ class _Span:
                 rec["trace"] = tid
             rec.update(self.attrs)
             log.write(rec)
+        self._range.__exit__(exc_type, exc, tb)
         return False  # never swallow
 
 
-_NULL_SPAN = contextlib.nullcontext()
+class _NullSpan:
+    """The span of a disabled registry: nothing measured or drawn."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def stop(self) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
 
 
 def span(name: str, **attrs):

@@ -19,6 +19,12 @@ deltas of these counters, and ``report`` prints run totals.
 * **Dispatches** -- :func:`note_dispatch` counts one call of the
   chunk program, which is many CUDA launches; the kernel wrappers
   count their own launches (``LAUNCHES``).
+* **Host syncs and ascent steps** -- :func:`host_bool`,
+  :func:`host_int` and :func:`note_host_sync` count the blocking
+  device-to-host reads of the chunk program (a loop test, a probe, a
+  boolean-mask select, the packed fetch), :func:`note_ascent_step`
+  the trips of the ``lp_device`` ascent; :func:`chunk_counts` reads
+  both.  They reach the chunk's dispatch report, never the registry.
 * **Device memory** -- the CUDA caching allocator's statistics,
   sampled on demand (snapshot time), never per operation.
 
@@ -98,6 +104,8 @@ _transfer_fetches = 0
 _device_dispatches = 0
 _persistent_hits = 0
 _persistent_hit_seconds = 0.0
+_host_syncs = 0
+_ascent_steps = 0
 
 
 def note_build(seconds: float) -> None:
@@ -139,6 +147,40 @@ def note_dispatch(n: int = 1) -> None:
     global _device_dispatches
     with _lock:
         _device_dispatches += int(n)
+
+
+def note_host_sync(n: int = 1) -> None:
+    """Count ``n`` blocking device-to-host reads on the chunk path.  A
+    read on a CPU tensor counts too: the count is of the program's
+    sync sites, the same on either device."""
+    global _host_syncs
+    with _lock:
+        _host_syncs += int(n)
+
+
+def host_bool(t: torch.Tensor) -> bool:
+    """``bool(t)``, counted as one host sync."""
+    note_host_sync()
+    return bool(t)
+
+
+def host_int(t: torch.Tensor) -> int:
+    """``int(t)``, counted as one host sync."""
+    note_host_sync()
+    return int(t)
+
+
+def note_ascent_step() -> None:
+    """Count one trip of the ``lp_device`` dual ascent's loop."""
+    global _ascent_steps
+    with _lock:
+        _ascent_steps += 1
+
+
+def chunk_counts() -> tuple[int, int]:
+    """(host syncs, ascent steps) so far, over every thread: the marks
+    a chunk's dispatch report is cut from."""
+    return _host_syncs, _ascent_steps
 
 
 def counters() -> tuple[int, int, int]:

@@ -1095,3 +1095,81 @@ def test_check_rt425_planted_flip_on_card(cuda_device):
     assert [f.rule for f in findings] == ["RT425"]
     assert "fused_dual_solve" in findings[0].message
     assert f"rung {last}" in findings[0].message
+
+
+STAGES = ("consensus_neighbors", "consensus_join", "consensus_compact",
+          "consensus_ascent", "consensus_rounding", "consensus_fetch")
+
+
+@pytest.mark.cuda
+def test_stage_split_on_card(cuda_device, tmp_path, monkeypatch):
+    """With no profiler a chunk builds no CUDA event and reports no
+    stage split.  Under the profiler the six stage ranges nest in
+    ``consensus_dispatch`` on the host and are drawn on the device's
+    lane over the kernels they enclose, and the chunk's ``stage_ms``
+    (CUDA events) has every stage, each positive, together within the
+    chunk's wall."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repic_tpu_torch.parallel.batching import PaddedBatch
+    from repic_tpu_torch.telemetry import metrics
+    from repic_tpu_torch.utils.synthetic import synthesize
+
+    m, k, np_ = 16, 5, 256
+    xy, conf, mask = synthesize(m, k, np_, seed=0, spacing=60.0,
+                                jitter=40.0)
+    batch = PaddedBatch(xy, conf, mask, tuple(f"m{i}" for i in range(m)),
+                        np.full((m, k), np_, np.int32))
+    was = metrics.enabled()
+    metrics.set_enabled(True)
+    try:
+        # the first visit probes and escalates: settle the memo
+        tcons.run_consensus_batch(batch, BOX, device=cuda_device)
+        tcons.consume_dispatch_report()
+        real_event, built = torch.cuda.Event, []
+
+        def event(*args, **kwargs):
+            built.append(1)
+            return real_event(*args, **kwargs)
+
+        monkeypatch.setattr(torch.cuda, "Event", event)
+        tcons.run_consensus_batch(batch, BOX, device=cuda_device)
+        assert not built
+        assert "stage_ms" not in tcons.consume_dispatch_report()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tcons.run_consensus_batch(batch, BOX, device=cuda_device)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        metrics.set_enabled(was)
+    report = tcons.consume_dispatch_report()
+    assert built and report["attempts"] == 1
+    assert sorted(report["stage_ms"]) == sorted(STAGES)
+    assert all(v > 0.0 for v in report["stage_ms"].values())
+    assert sum(report["stage_ms"].values()) <= wall_ms
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    by_cat: dict = {}
+    for e in events:
+        by_cat.setdefault(e.get("cat"), []).append(e)
+    dispatch = [e for e in by_cat["user_annotation"]
+                if e["name"] == "consensus_dispatch"]
+    work = by_cat.get("kernel", []) + by_cat.get("gpu_memcpy", [])
+    for name in STAGES:
+        host = [e for e in by_cat["user_annotation"] if e["name"] == name]
+        assert any(d["tid"] == e["tid"] and d["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= d["ts"] + d["dur"]
+                   for e in host for d in dispatch), name
+        lane = [e for e in by_cat.get("gpu_user_annotation", [])
+                if e["name"] == name]
+        assert any(w["ts"] < e["ts"] + e["dur"]
+                   and e["ts"] < w["ts"] + w["dur"]
+                   for e in lane for w in work), name
