@@ -8,11 +8,12 @@ the CUDA toolkit; imports no JAX.  Run from the repository root:
 
 Phases, each fatal on failure:
 
-1. print the card's name and power limit; build the three kernels
+1. print the card's name and power limit; build every kernel source
    (one ``nvcc`` per source, all at once), print ptxas's register and
    spill lines, and fail if any kernel spills;
 2. hold each kernel against its plain PyTorch version on the card —
-   on the reference kernels' contract ladders (kernel 1 at d = 1, 4,
+   on the reference kernels' contract ladders and the ascent kernel's
+   (shared, split and global residency) (kernel 1 at d = 1, 4,
    8, 16, 24, 32 and 48, also with N not a multiple of its anchors per
    block, M past one staged tile, every anchor or every candidate
    masked, negative thresholds and per-item box sizes; kernel 2 at
@@ -36,7 +37,8 @@ Phases, each fatal on failure:
    third run under ``torch.profiler``;
 5. after phases 6 to 16, print the ``{"kernels": [...]}`` line
    (launches, kernel and plain times, bound, max abs error; kernel 1's
-   entry carries its k5_mixed chunk as ``k5_chunk``), the
+   and the ascent kernel's entries carry the k5_mixed chunk as
+   ``k5_chunk``, the ascent kernel's its launches by residency), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``;
 6. ``stress_50k`` (the dense-field configuration: 50,000 particles x
    4 pickers, box 180; the spatial path with the anchor-chunked
@@ -56,16 +58,18 @@ Phases, each fatal on failure:
    fused envelope) and ``greedy``, each against the JAX digests; kernel
    1 at this chunk's shape (M = 16, K = 5, N = 768, the accepted d, the
    per-picker sizes as device views) against its plain version, with
-   its time, device time and bound; then a warm pass over the
+   its time, device time and bound; the ascent kernel on the solver
+   inputs of that chunk's accepted attempt, likewise; then a warm pass
+   over the
    :data:`K5_WARM` = 512 of the configuration's 1,024 micrographs;
 8. the rest of the flags, through the CLI's parser and commands in this
    process (the escalation memo cleared and the launch counts set to 0
    before each run), each output file held to the JAX digests
    (``tests/golden/torch_port_flags_digests.json``): ``consensus
-   --multi_out``, ``--get_cc`` and both on 10017 under ``lp_device``,
-   ``lp_device --pallas`` (kernel 1 must launch) and
-   ``lp_device_fused`` (kernels 2 and 3 must launch, no chunk
-   demoted); ``--solver exact`` and ``--solver lp``; ``get_cliques``
+   --multi_out``, ``--get_cc`` and both on 10017 under ``lp_device``
+   (the ascent kernel must launch), ``lp_device --pallas`` (kernel 1
+   and the ascent kernel must launch) and ``lp_device_fused`` (kernels
+   2 and 3 must launch, no chunk demoted); ``--solver exact`` and ``--solver lp``; ``get_cliques``
    (plain, ``--multi_out``, ``--get_cc``; pickles by content) then
    ``run_ilp`` with each backend; ``--stripes 4`` on the two
    ``stress_50k`` golden micrographs under ``lp_device`` and ``lp``,
@@ -288,11 +292,13 @@ STATUS_PATHS = ("/healthz", "/healthz/ready", "/status", "/metrics")
 #: and the kernels its profiler trace must name
 LAUNCH_KEYS = {"lp_device_fused": ("fused_clique_candidates",
                                    "fused_dual_solve"),
-               "lp_device_pallas": ("topk_neighbors",)}
+               "lp_device_pallas": ("topk_neighbors", "dual_ascent"),
+               "lp_device": ("dual_ascent",)}
 TRACE_KERNELS = {"lp_device_fused": ("clique_count_kernel",
                                      "clique_write_kernel",
                                      "dual_solve_kernel"),
-                 "lp_device_pallas": ("topk_neighbors_kernel",)}
+                 "lp_device_pallas": ("topk_neighbors_kernel",
+                                      "dual_ascent_kernel")}
 #: phase 14a's micrographs per chunk (each host's third of the
 #: synthetic set is then 6 chunks)
 CLUSTER_CHUNK = 16
@@ -414,6 +420,21 @@ def device_ms(fn, reps: int, kernel: str):
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_INSTR
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def ascent_work(valid, k, v, steps):
+    """The ascent kernel's bytes (its inputs read once, its outputs
+    written once) and operations (per step, each valid clique's k
+    gathers, adds and a compare; each vertex's price step), and the
+    bytes of its staged clique list read once a step (uint16 ids and
+    a float weight per valid clique)."""
+    m, c = valid.shape
+    n_cl = valid.sum(-1).double().cpu()
+    steps = steps.double().cpu()
+    nbytes = m * c * (4 * k + 4 + 1) + m * v * 8 + m * 8
+    ops = float((steps * (n_cl * (k + 2) + 6.0 * v)).sum())
+    staged = float((steps * n_cl).sum()) * (2 * k + 4)
+    return nbytes, ops, staged
 
 
 def compare(name, got, want):
@@ -800,8 +821,67 @@ def phase_k5(golden):
         f"host issue {kc['issue_ms']:.4f} ms, of it size arguments "
         f"{kc['size_arg_ms']:.4f} ms; "
         f"{kc['launches']} launches in the --pallas run")
+    runs["ascent_k5_chunk"] = ascent_at_chunk(
+        pad_batch(loaded[:m], pad_micrographs_to=m, capacity=nb), box,
+        runs["lp_device"]["launches"]["dual_ascent"])
     runs["warm"] = warm_pass("k5_mixed", K5_WARM, "lp_device")
     return runs
+
+
+def ascent_at_chunk(batch, box, launches):
+    """The ascent kernel on the solver inputs of a staged ``lp_device``
+    chunk (its accepted attempt's, captured in a cold run of the
+    batch): equal to the plain loop, its time, device time, bound and
+    residency."""
+    from repic_tpu_torch.ops import megakernel
+    from repic_tpu_torch.pipeline import consensus
+    from repic_tpu_torch.solver import dual
+
+    captured = []
+    real = megakernel.dual_ascent
+
+    def capture(*args, **kw):
+        captured.append(args)
+        return real(*args, **kw)
+
+    clear_memo()
+    megakernel.dual_ascent = capture
+    try:
+        consensus.run_consensus_batch(batch, box, solver="lp_device",
+                                      device="cuda")
+    finally:
+        megakernel.dual_ascent = real
+    mv, w, valid, v = captured[-1]
+    m, c, k = mv.shape
+    got = real(mv, w, valid, v)
+    want = dual.dual_ascent_plain(mv, w, valid, v)
+    err = compare("ascent k5 chunk", got, want)
+    nbytes, ops, staged = ascent_work(valid, k, v, want[2])
+    b_ms, by = bound(nbytes, ops)
+    rep = {
+        "shape": f"M={m} C={c} K={k} V={v}",
+        "residency": list(megakernel.ascent_residency(v, c, k)),
+        "valid_cliques_max": int(valid.sum(-1).max()),
+        "steps_max": int(want[2].max()),
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: real(mv, w, valid, v), 10),
+        "device_ms": device_ms(lambda: real(mv, w, valid, v), 10,
+                               "dual_ascent_kernel"),
+        "plain_ms": cuda_ms(lambda: dual.dual_ascent_plain(mv, w, valid, v),
+                            2, warm=1),
+        "bound_ms": b_ms, "bound_by": by,
+        # the staged list read once a step at HBM's rate (most of it is
+        # read from shared memory and L2)
+        "staged_bytes_ms": staged / PEAK_BYTES * 1e3,
+    }
+    log(f"phase 7: the ascent kernel at the k5_mixed chunk "
+        f"({rep['shape']}, {rep['residency']}): equal to the plain loop "
+        f"(max abs err {err}); kernel {rep['ms']:.4f} ms, device "
+        + ("not measured" if rep["device_ms"] is None else
+           f"{rep['device_ms']:.4f} ms")
+        + f", plain {rep['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({by}), "
+        f"staged bytes at HBM rate {rep['staged_bytes_ms']:.4f} ms")
+    return rep
 
 
 # -- phase 8: the tables, the lp and exact rungs, two phases, stripes --
@@ -870,7 +950,7 @@ def load_times(src):
 def phase_flags(synth):
     """Phase 8, through the CLI on the card: the 10017 tables under
     lp_device, lp_device --pallas and lp_device_fused (kernels 1, 2 and
-    3 must launch, no chunk demoted); --solver exact and lp; get_cliques
+    3 and the ascent kernel must launch, no chunk demoted); --solver exact and lp; get_cliques
     + run_ilp with each backend; --stripes 4 on the stress_50k golden
     micrographs; and the native BOX parser's read times."""
     import torch
@@ -890,9 +970,9 @@ def phase_flags(synth):
         st, wall, counts = cli("consensus", EXAMPLES, out, BOX, "--solver",
                                solver, *extra, *flag_args[flags])
         check_outputs(f"10017 {key}", out, want)
-        need = (["topk_neighbors"] if extra else
+        need = (["topk_neighbors", "dual_ascent"] if extra else
                 ["fused_clique_candidates", "fused_dual_solve"]
-                if solver == "lp_device_fused" else [])
+                if solver == "lp_device_fused" else ["dual_ascent"])
         for k in need:
             if counts[k] <= 0:
                 raise AssertionError(f"{key}: {k} never launched")
@@ -1528,7 +1608,7 @@ def phase_serve(synth, phase4_outs):
                                          "never launched")
             if not need and any(counts[k] for k in (
                     "topk_neighbors", "fused_clique_candidates",
-                    "fused_dual_solve")):
+                    "fused_dual_solve", "dual_ascent")):
                 raise AssertionError(f"phase 11a {setting}: a kernel "
                                      f"launched: {counts}")
             rep["10017"][setting] = {"wall_s": wall, "launches": counts}
@@ -2732,7 +2812,7 @@ def phase_cluster(synth, phase4_outs):
 
     rep = {}
     launches = {k: 0 for k in ("topk_neighbors", "fused_clique_candidates",
-                               "fused_dual_solve")}
+                               "fused_dual_solve", "dual_ascent")}
     runs = (
         ("cluster3", 3, "lp_device_fused", False,
          {1: "host_crash:after_chunk:1:1"}, "lp_device_fused"),
@@ -3049,7 +3129,7 @@ def phase_fleet(synth, phase4_outs):
                                      f"{CHILD_DEVICE}")
         launches = {k: sum(p.get(k, 0) for p in per.values())
                     for k in ("topk_neighbors", "fused_clique_candidates",
-                              "fused_dual_solve")}
+                              "fused_dual_solve", "dual_ascent")}
         _need_launches("phase 14b: the survivors", launches, launches)
         for r, counts in per.items():
             _need_launches(f"phase 14b: replica {r}",
@@ -3129,7 +3209,7 @@ def phase_gang_of_one(synth, phase4_outs):
         ("lp_device_fused", ["--solver", "lp_device_fused"],
          ("fused_clique_candidates", "fused_dual_solve")),
         ("lp_device_pallas", ["--solver", "lp_device", "--pallas"],
-         ("topk_neighbors",)),
+         ("topk_neighbors", "dual_ascent")),
     ):
         out = os.path.join(WORK, "gang1_" + setting)
         t = time.time()
@@ -3348,7 +3428,7 @@ def phase_gang_torchrun(synth, phase4_outs):
 
 
 def phase_sanitizers(synth, phase4_outs):
-    """Phase 15c: KERNELCHECK over the three kernels' ladders on the
+    """Phase 15c: KERNELCHECK over the four kernels' ladders on the
     card (and a planted divergence caught), DISPATCHCHECK over a fused
     and a ``--pallas`` run of the 256 set, LOCKCHECK armed from its
     variable in a served 10017 job's daemon process and in a cluster
@@ -3375,7 +3455,7 @@ def phase_sanitizers(synth, phase4_outs):
         rungs = sum(len(e.contract.kernel.ladder)
                     for e in contracts.registry().values()
                     if e.contract.kernel is not None)
-        if probed != 3 or clean:
+        if probed != 4 or clean:
             raise AssertionError(f"phase 15c: KERNELCHECK probed {probed}: "
                                  + kernelcheck.report_text())
         # a divergence planted in this phase only: one valid slot of
@@ -3570,7 +3650,7 @@ def phase_analysis():
             f"{registered}")
     _need_launches("phase 16b", counts, ("topk_neighbors",
                                          "fused_clique_candidates",
-                                         "fused_dual_solve"))
+                                         "fused_dual_solve", "dual_ascent"))
     routes = {c["entry"].rsplit(".", 1)[-1]: c["route"]
               for c in report.checked}
     rep["check"] = {"checked": len(checked), "findings": 0, "skipped": 0,
@@ -3786,7 +3866,26 @@ def main() -> int:
         compare("dual " + label, [got], [want])
         compare("dual steps " + label, [megakernel.SOLVE_CHAIN[:, 0]],
                 [dual.solve_dual_decomposition(mv, w, valid, v).iterations])
-    log("phase 2: contract ladders equal (kernels 1-3)")
+    # the ascent kernel on its contract's ladder (shared, split and
+    # global residency), at the stop tolerance and at one that rows
+    # reach at different steps
+    from repic_tpu_torch.analysis import contracts
+
+    akc = contracts.registry()[
+        "repic_tpu_torch.ops.megakernel.dual_ascent"].contract.kernel
+    errs["dual_ascent"] = 0.0
+    for rung in akc.ladder:
+        arrays, akw = akc.make_inputs(dict(rung))
+        args = [a.to(dev)[None] for a in arrays]
+        for tol in (dual.DEFAULT_TOL, 0.05):
+            got = megakernel.dual_ascent(*args, akw["num_vertices"], tol=tol)
+            want = dual.dual_ascent_plain(*args, akw["num_vertices"],
+                                          tol=tol)
+            torch.cuda.synchronize()
+            errs["dual_ascent"] = max(errs["dual_ascent"], compare(
+                f"ascent {rung} tol {tol}", got, want))
+    log("phase 2: contract ladders equal (kernels 1-3, the ascent "
+        f"kernel; residency launches {megakernel.ASCENT_RESIDENCY})")
 
     # the main path's chunk: 32 micrographs of the synthetic set
     synth = os.path.join(WORK, "synthetic_in")
@@ -3907,6 +4006,18 @@ def main() -> int:
             vid, cs.w, cs.valid, nv), 2, warm=1),
         bound(bytes3, ops3),
     )
+    # the ascent kernel on the same solver inputs
+    got = megakernel.dual_ascent(vid, cs.w, cs.valid, nv)
+    want = dual.dual_ascent_plain(vid, cs.w, cs.valid, nv)
+    errs["dual_ascent"] = max(errs["dual_ascent"],
+                              compare("ascent chunk", got, want))
+    a_bytes, a_ops, _staged = ascent_work(cs.valid, k, nv, want[2])
+    times["dual_ascent"] = (
+        cuda_ms(lambda: megakernel.dual_ascent(vid, cs.w, cs.valid, nv), 10),
+        cuda_ms(lambda: dual.dual_ascent_plain(vid, cs.w, cs.valid, nv), 2,
+                warm=1),
+        bound(a_bytes, a_ops),
+    )
     log(f"phase 2: chunk-shape kernels equal their plain versions "
         f"(dual iterations {stats.iterations.tolist()[:4]}...)")
     # the kernels' own device time per call (CUDA-event times above
@@ -3921,6 +4032,9 @@ def main() -> int:
         "fused_dual_solve": device_ms(
             lambda: megakernel.fused_dual_solve(vid, cs.w, cs.valid, nv),
             10, "dual_solve_kernel"),
+        "dual_ascent": device_ms(
+            lambda: megakernel.dual_ascent(vid, cs.w, cs.valid, nv),
+            10, "dual_ascent_kernel"),
     }
     for name, (ms, plain_ms, (b_ms, by)) in times.items():
         dm = dev_ms[name]
@@ -3982,7 +4096,7 @@ def main() -> int:
         if st["chunks"] != N_SYNTH // CHUNK or demoted:
             raise AssertionError(
                 f"{setting}: chunks {st['chunks']}, demotions {demoted}")
-        need = (["topk_neighbors"] if pallas else
+        need = (["topk_neighbors", "dual_ascent"] if pallas else
                 ["fused_clique_candidates", "fused_dual_solve"])
         for key in need:
             if counts[key] <= 0:
@@ -4087,15 +4201,18 @@ def main() -> int:
         "topk_neighbors": "repic_tpu/ops/iou_pallas.py:397",
         "fused_clique_candidates": "repic_tpu/ops/megakernel.py:662",
         "fused_dual_solve": "repic_tpu/ops/megakernel.py:846",
+        # the staged program's ascent loop (lax.while_loop)
+        "dual_ascent": "repic_tpu/solver/dual.py:174",
     }
     sources = {
         "topk_neighbors": "repic_tpu_torch/csrc/neighbors.cu",
         "fused_clique_candidates": "repic_tpu_torch/csrc/cliques.cu",
         "fused_dual_solve": "repic_tpu_torch/csrc/dual.cu",
+        "dual_ascent": "repic_tpu_torch/csrc/ascent.cu",
     }
     kernels = []
     for name in ("topk_neighbors", "fused_clique_candidates",
-                 "fused_dual_solve"):
+                 "fused_dual_solve", "dual_ascent"):
         ms, plain_ms, (b_ms, by) = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
@@ -4104,35 +4221,34 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
     kernels[0]["k5_chunk"] = k5["k5_chunk"]
+    kernels[3]["k5_chunk"] = k5["ascent_k5_chunk"]
+    kernels[3]["residency_launches"] = dict(megakernel.ASCENT_RESIDENCY)
     for entry in kernels:
+        name = entry["name"]
         # launches on phase 8's 10017 tables runs, per run
-        entry["tables_launches"] = phase8["tables_launches"].get(
-            entry["name"], {})
+        entry["tables_launches"] = phase8["tables_launches"].get(name, {})
         # launches in phase 10a's profiled, device-timed 10017 run
-        entry["telemetry_launches"] = phase10["launches"][entry["name"]]
+        entry["telemetry_launches"] = phase10["launches"].get(name, 0)
         # launches in phase 11a's served 10017 jobs, per setting
         entry["serve_launches"] = {
-            setting: r["launches"][entry["name"]]
+            setting: r["launches"].get(name, 0)
             for setting, r in phase11["10017"].items()}
         # launches in phase 14's host and replica processes (their own
         # counters: the hosts' stats, the survivors' /status)
-        entry["cluster_launches"] = phase14["cluster"]["launches"][
-            entry["name"]]
-        entry["fleet_launches"] = phase14["fleet"]["launches"][entry["name"]]
+        entry["cluster_launches"] = phase14["cluster"]["launches"][name]
+        entry["fleet_launches"] = phase14["fleet"]["launches"][name]
         # launches in phase 15's gang processes (their own counters):
         # the gang of one per setting, the chaos gang's survivors, the
         # torchrun gang's ranks
         entry["gang_launches"] = {
-            **{setting: r["launches"][entry["name"]]
+            **{setting: r["launches"].get(name, 0)
                for setting, r in phase15["gang_of_one"].items()},
-            "chaos_survivors": phase15["gang_chaos"]["launches"][
-                entry["name"]],
-            "torchrun": phase15["gang_torchrun"]["launches"].get(
-                entry["name"], 0),
+            "chaos_survivors": phase15["gang_chaos"]["launches"].get(
+                name, 0),
+            "torchrun": phase15["gang_torchrun"]["launches"].get(name, 0),
         }
         # launches in phase 16b's check of the package on the card
-        entry["check_launches"] = phase16["check"]["launches"][
-            entry["name"]]
+        entry["check_launches"] = phase16["check"]["launches"][name]
     report = {"card": card, "kernels": kernels, "device_ms": dev_ms,
               "cli_10017": cli_runs,
               "synthetic_256": rates, "dual_chain": chain_report,

@@ -50,6 +50,11 @@ KERNELS = {
         "repic_dual_smem_bytes": ["i", "i", "i"],
         "repic_dual_solve": ["p"] * 6 + ["i"] * 6 + ["f", "p"],
     },
+    "ascent": {
+        "repic_dual_ascent_smem_bytes": ["i"] * 5,
+        "repic_dual_ascent_slice_bytes": ["i"] * 5,
+        "repic_dual_ascent": ["p"] * 8 + ["i"] * 7 + ["f", "p"],
+    },
 }
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

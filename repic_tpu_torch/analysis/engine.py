@@ -123,6 +123,7 @@ LAUNCH_WRAPPERS = frozenset((
     "repic_tpu_torch.ops.iou_pallas.pallas_topk_neighbors",
     "repic_tpu_torch.ops.megakernel.fused_clique_candidates",
     "repic_tpu_torch.ops.megakernel.fused_dual_solve",
+    "repic_tpu_torch.ops.megakernel.dual_ascent",
 ))
 #: blocks the host until every launch queued on the card has finished
 CUDA_SYNC = "torch.cuda.synchronize"

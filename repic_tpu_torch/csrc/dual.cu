@@ -50,45 +50,24 @@
 //   sum of positive terms unchanged), the later levels run on one warp,
 //   and one lane adds the last <= 32 terms in index order.
 //
-// Float rules: the sum of lam[member] adds slot 0..K-1; the price step
-// is one explicit fmaf (the reference's CPU program contracts that
-// expression); the build's --fmad=false keeps every other expression
-// unfused.  Atomics appear only where the result is order-independent:
-// the integer counts ax (the reference's float32 ax holds the same
-// integers) and the key maximum.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The ascent (staging, count pass, steps, averaged prices) is
+// dual_ascent.cuh's, which the ascent kernel (ascent.cu) runs too.
+//
+// Float rules: those of dual_ascent.cuh; atomics appear only where the
+// result is order-independent: the integer counts ax and the key
+// maximum.
+#include "dual_ascent.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-// the reference kernel pads C to its lane width; the objective sums run
-// over that width
-constexpr int kLane = 128;
-// window of the reference's CPU tree reduction (solver/dual.py:
-// SUM_WINDOW)
-constexpr int kWindow = 32;
 // per-micrograph counters: ascent steps, greedy rounds of the six
 // fixpoints, block barriers
 constexpr int kStats = 8;
-
-__host__ __device__ inline int sum_width(int c) {
-  return (c + kLane - 1) / kLane * kLane;
-}
 
 struct Layout {
   size_t mv, w, pos, prio, pick, list0, list1, lam, lam_sum, ax, best,
       used, win, sums, total;
 };
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~size_t(15);
-}
-
-// bytes of a staged member id
-__host__ __device__ inline int id_bytes(int v) { return v <= 65535 ? 2 : 4; }
 
 __host__ __device__ inline Layout make_layout(int c, int k, int v) {
   const size_t nwin = sum_width(c) / kWindow;
@@ -121,9 +100,6 @@ struct Solve {
   int* list0;       // worklists of compacted clique indices: build g
   int* list1;       // writes list0 when g is even, list1 when odd
   int* list_cnt;    // 4 counters, rotating with the build generation
-  float* __restrict__ lam;
-  float* __restrict__ lam_sum;
-  int* __restrict__ ax;  // (V,) clique counts of the ascent step
   unsigned long long* __restrict__ best;  // (V,) greedy keys
   uint8_t* __restrict__ used;             // (V,)
   const int* __restrict__ win;  // (nwin + 1,) first compacted index of each window
@@ -131,17 +107,6 @@ struct Solve {
   float* obj_out;
   int c;
 };
-
-__device__ __forceinline__ void bar(int& nbar) {
-  __syncthreads();
-  ++nbar;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
 
 __device__ __forceinline__ unsigned long long greedy_key(float prio,
                                                          int idx) {
@@ -298,10 +263,6 @@ __device__ __forceinline__ float objective_sum(const Solve<VT>& S,
   return *S.obj_out;
 }
 
-// cliques and vertices a thread takes at once in an ascent step, so
-// that their loads overlap
-constexpr int kUnroll = 4;
-
 // kSmem: the solve state lives in dynamic shared memory (known as
 // such to the compiler, so its loads, stores and atomics are shared-
 // memory instructions), else in this block's slice of scratch.
@@ -321,7 +282,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float obj_out;
   const int m = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const Layout L = make_layout(c, K, v);
   uint8_t* base = kSmem ? smem : scratch + (size_t)m * L.total;
   VT* __restrict__ smv = (VT*)(base + L.mv);
@@ -338,9 +298,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   S.list0 = (int*)(base + L.list0);
   S.list1 = (int*)(base + L.list1);
   S.list_cnt = list_cnt;
-  S.lam = lam;
-  S.lam_sum = lam_sum;
-  S.ax = ax;
   S.best = (unsigned long long*)(base + L.best);
   S.used = base + L.used;
   S.win = win;
@@ -348,137 +305,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   S.obj_out = &obj_out;
   S.c = c;
   uint8_t* pick = base + L.pick;
-  const int* mv = mv_all + (size_t)m * c * K;
-  const float* w = w_all + (size_t)m * c;
-  const uint8_t* valid = valid_all + (size_t)m * c;
   int nbar = 0;
 
   // ---- stage the valid cliques, compacted in position order ----------
   if (tid < 4) list_cnt[tid] = 0;
-  for (int j = tid; j < v; j += nt) {
-    lam[j] = 0.0f;
-    lam_sum[j] = 0.0f;
-    ax[j] = 0;
-  }
-  const int nwin = sum_width(c) / kWindow;
-  const unsigned below = (1u << lane) - 1u;
-  int nv = 0;
-  float wmax = 0.0f;
-  int it = 0;
-  for (int t0 = 0; t0 < c; t0 += kThreads, ++it) {
-    const int i = t0 + tid;
-    const bool ok = i < c && valid[i];
-    const unsigned bal = __ballot_sync(kFull, ok);
-    if (lane == 0) tile_cnt[it & 1][warp] = __popc(bal);
-    bar(nbar);
-    int before = 0, tile = 0;
-    for (int x = 0; x < kWarps; ++x) {
-      const int cnt = tile_cnt[it & 1][x];
-      if (x < warp) before += cnt;
-      tile += cnt;
-    }
-    // the warp covers positions [t0 + 32 warp, +32): objective window
-    // (t0 >> 5) + warp, which starts at compacted index nv + before
-    const int wj = (t0 >> 5) + warp;
-    if (lane == 0 && wj < nwin) win[wj] = nv + before;
-    if (ok) {
-      const int at = nv + before + __popc(bal & below);
-#pragma unroll
-      for (int j = 0; j < K; ++j)
-        smv[(size_t)at * K + j] = (VT)mv[(size_t)i * K + j];
-      sw[at] = w[i];
-      spos[at] = i;
-      wmax = fmaxf(wmax, w[i]);
-    }
-    nv += tile;
-  }
-  // windows past the last tile hold no clique
-  for (int j = it * kWarps + tid; j <= nwin; j += nt) win[j] = nv;
-  if (tid == 0 && it * kWarps > nwin) win[nwin] = nv;
-  // eta0 = max(max(wv), 1e-6): max over the valid weights, and over the
-  // zeros of the invalid rows, which the 1e-6 floor absorbs
-  wmax = warp_max(wmax);
-  if (lane == 0) red_f[warp] = wmax;
-  bar(nbar);
-  float eta0 = red_f[0];
-  for (int x = 1; x < kWarps; ++x) eta0 = fmaxf(eta0, red_f[x]);
-  eta0 = fmaxf(eta0, 1e-6f);
+  clear_state(lam, lam_sum, ax, v);
+  float eta0;
+  const int nv = stage<VT, K>(
+      mv_all + (size_t)m * c * K, w_all + (size_t)m * c,
+      valid_all + (size_t)m * c, c, K, smv, sw, c, (VT*)nullptr,
+      (float*)nullptr, spos, win, tile_cnt, red_f, eta0, nbar);
 
   // ---- dual ascent: two barriers a step ----------------------------
-  const int half = num_iters / 2;
-  int t = 0, n_tail = 0;
-  float delta = INFINITY;
-  while (t < num_iters && delta > tol) {
-    // ax += 1 at the members of each clique of positive reduced cost
-    // (integer counts: the float32 ax of the reference, exactly)
-    for (int b = tid; b < nv; b += kUnroll * nt) {
-      VT r[kUnroll][K];
-      bool pos[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        // past nv: a copy of the last clique's members, never scattered
-        // (unconditional loads keep the batch's loads overlapped)
-        const int idx = min(b + u * nt, nv - 1);
-#pragma unroll
-        for (int j = 0; j < K; ++j) r[u][j] = smv[(size_t)idx * K + j];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int idx = b + u * nt;
-        pos[u] = false;
-        if (idx < nv) {
-          float s = lam[r[u][0]];
-#pragma unroll
-          for (int j = 1; j < K; ++j) s = s + lam[r[u][j]];
-          pos[u] = sw[idx] - s > 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (pos[u]) {
-#pragma unroll
-          for (int j = 0; j < K; ++j) atomicAdd(&ax[r[u][j]], 1);
-        }
-    }
-    bar(nbar);
-    // the price step; each vertex's ax is read and cleared by its thread
-    const float eta = eta0 / (1.0f + (float)t);
-    const bool in_tail = t >= half;
-    unsigned dmax = 0u;
-    for (int b = tid; b < v; b += kUnroll * nt) {
-      float a[kUnroll], old[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = b + u * nt;
-        if (j < v) {
-          a[u] = (float)ax[j];
-          old[u] = lam[j];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int j = b + u * nt;
-        if (j < v) {
-          const float nw = fmaxf(fmaf(eta, a[u] - 1.0f, old[u]), 0.0f);
-          dmax = max(dmax, __float_as_uint(fabsf(nw - old[u])));
-          ax[j] = 0;
-          lam[j] = nw;
-          if (in_tail) lam_sum[j] = lam_sum[j] + nw;
-        }
-      }
-    }
-    dmax = __reduce_max_sync(kFull, dmax);
-    if (lane == 0) red_u[warp] = dmax;
-    bar(nbar);
-    dmax = __reduce_max_sync(kFull, red_u[lane < kWarps ? lane : 0]);
-    delta = __uint_as_float(dmax) / eta0;
-    n_tail += in_tail;
-    ++t;
-  }
-  // lam_sum becomes the averaged prices (each vertex by the thread that
-  // wrote it; candidate 2 reads it many barriers later)
-  for (int j = tid; j < v; j += nt)
-    lam_sum[j] = n_tail > 0 ? lam_sum[j] / (float)max(n_tail, 1) : lam[j];
+  const Ascent a = ascent<VT, K>(smv, sw, nv, (const VT*)nullptr,
+                                 (const float*)nullptr, 0, K, lam,
+                                 lam_sum, ax, v, eta0, num_iters, tol,
+                                 red_u, nbar);
+  const int t = a.t;
+  // lam_sum becomes the averaged prices (candidate 2 reads it many
+  // barriers later)
+  average(lam, lam_sum, lam_sum, v, a.n_tail);
 
   // ---- three rounding candidates -----------------------------------
   float vals[3];

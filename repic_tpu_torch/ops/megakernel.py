@@ -1,5 +1,6 @@
 """The fused chunk program: clique candidates (kernel 2) and the dual
-solve (kernel 3).
+solve (kernel 3); and the staged program's dual ascent (the ascent
+kernel).
 
 :func:`fused_clique_candidates` runs everything from IoU to the
 compacted clique buffer — per-picker top-D neighbours (masked IoU
@@ -8,7 +9,8 @@ weight and representative, and compaction of the valid rows into the
 buffer's leading slots in product-id order (slots past them are
 zero).  :func:`fused_dual_solve` is the whole ``lp_device`` solve in
 one launch.  On a CUDA tensor each launches its kernel
-(``csrc/cliques.cu``, ``csrc/dual.cu``); on a CPU tensor each runs
+(``csrc/cliques.cu``, ``csrc/dual.cu``, ``csrc/ascent.cu``); on a CPU
+tensor each runs
 its ``*_plain`` version, which is the staged program: the dense
 enumeration of :mod:`~repic_tpu_torch.ops.cliques` compacted by index,
 and :func:`~repic_tpu_torch.solver.dual.solve_lp_device`.
@@ -21,9 +23,16 @@ Each wrapper is a ``@checked`` entry whose :class:`KernelContract`
 holds it, one micrograph at a time, against the unfused path
 (KERNELCHECK): kernel 2 against the staged full-product enumeration
 compacted in index order, kernel 3 against
-:func:`~repic_tpu_torch.solver.dual.solve_lp_device`.  A chunk the
-fused program ran answers to the candidates entry's dispatch budget
-of 3 (DISPATCHCHECK).
+:func:`~repic_tpu_torch.solver.dual.solve_dual_decomposition_plain`.
+A chunk the fused program ran answers to the candidates entry's
+dispatch budget of 3 (DISPATCHCHECK).
+
+:func:`dual_ascent` is the ascent of every staged ``lp_device`` solve
+on the card (:func:`~repic_tpu_torch.solver.dual.run_dual_ascent`):
+kernel 3's staging and ascent at any C, with the vertex state and the
+staged cliques placed by :func:`ascent_residency`; its contract holds
+it bit for bit to the plain loop
+(:func:`~repic_tpu_torch.solver.dual.dual_ascent_plain`).
 
 Eligibility (:func:`fused_eligible`) is the reference's envelope:
 dense path (no spatial grid), ``2 <= K <= 6``, ``N <= 8192``, ``D^(K-1) <= 4096``.
@@ -57,7 +66,8 @@ SOLVE_LANE = 128
 
 #: kernel launches by wrapper name (one per wrapper call that
 #: launched its CUDA kernel)
-LAUNCHES = {"fused_clique_candidates": 0, "fused_dual_solve": 0}
+LAUNCHES = {"fused_clique_candidates": 0, "fused_dual_solve": 0,
+            "dual_ascent": 0}
 #: lp_device_fused chunks demoted to the staged program (envelope)
 DEMOTIONS = 0
 #: micrographs demoted off the fused rung after it ran, by reason
@@ -68,9 +78,12 @@ FALLBACKS: dict = {}
 #: (candidate 0 pass 0, pass 1, candidate 1 pass 0, ...), block barriers
 SOLVE_CHAIN = None
 
-# dynamic shared memory the solve may claim per block (the card's
-# 227 KB less the kernel's static reduction buffers)
-_SOLVE_SMEM_LIMIT = 220_000
+#: dynamic shared memory a block of kernel 3 or of the ascent kernel
+#: may claim: the card's 227 KB less 1 KB for their static reduction
+#: buffers
+SMEM_LIMIT = 227 * 1024 - 1024
+#: ascent-kernel launches by residency (:func:`ascent_residency`)
+ASCENT_RESIDENCY = {"shared": 0, "split": 0, "global": 0}
 
 
 # the reference's registry counters (its names and help strings)
@@ -409,9 +422,9 @@ def fused_dual_solve_plain(member_vertex, w, valid, num_vertices):
     def grow(x):
         return torch.cat([x, x.new_zeros((m, pad) + x.shape[2:])], 1)
 
-    picked = _dual.solve_lp_device(
+    picked = _dual.solve_dual_decomposition_plain(
         grow(member_vertex), grow(w), grow(valid), num_vertices
-    )
+    ).picked
     return picked[:, :c]
 
 
@@ -438,9 +451,11 @@ def _run_solve(member_vertex, w, valid):
 
 
 def _solve_reference(member_vertex, w, valid):
-    """Ground truth: the staged ``lp_device`` solve."""
-    return _dual.solve_lp_device(member_vertex[None], w[None],
-                                 valid[None], _SOLVE_PROBE_V)[0]
+    """Ground truth: the staged ``lp_device`` solve, its ascent the
+    plain loop."""
+    return _dual.solve_dual_decomposition_plain(
+        member_vertex[None], w[None], valid[None], _SOLVE_PROBE_V,
+    ).picked[0]
 
 
 def _solve_compare(got, want, tol):
@@ -505,7 +520,7 @@ def fused_dual_solve(member_vertex, w, valid, num_vertices):
     w, valid = w.contiguous(), valid.contiguous()
     lib = _build.load("dual")
     per_block = lib.repic_dual_smem_bytes(c, k, num_vertices)
-    use_smem = per_block <= _SOLVE_SMEM_LIMIT
+    use_smem = per_block <= SMEM_LIMIT
     scratch = torch.empty(
         (1 if use_smem else m * per_block,), dtype=torch.uint8, device=dev
     )
@@ -521,6 +536,180 @@ def fused_dual_solve(member_vertex, w, valid, num_vertices):
     SOLVE_CHAIN = chain
     LAUNCHES["fused_dual_solve"] += 1
     return picked
+
+
+# -- the ascent kernel: the staged program's dual ascent ---------------
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def ascent_smem_bytes(num_vertices: int, k: int, n_near: int,
+                      state_smem: bool) -> int:
+    """Dynamic shared memory of the ascent kernel with ``n_near``
+    staged cliques there, and the vertex state (``lam``, ``lam_sum``,
+    ``ax``: V x 12 B) with ``state_smem`` (``csrc/ascent.cu:
+    ascent_layout``)."""
+    idb = 2 if num_vertices <= 65535 else 4
+    state = 3 * _align16(4 * num_vertices) if state_smem else 0
+    return state + _align16(idb * n_near * k) + _align16(4 * n_near)
+
+
+def ascent_residency(num_vertices: int, c: int, k: int) -> tuple:
+    """Where the ascent kernel keeps a ``(C, K)`` packing over V
+    vertices, from the shapes against :data:`SMEM_LIMIT`:
+    ``(residency, n_near)``, the staged cliques that stay in shared
+    memory being the first ``n_near`` valid ones.
+
+    * ``shared``: the vertex state and every clique in shared memory;
+    * ``split``: the state there, the cliques as far as they fit, the
+      others in the block's global slice;
+    * ``global``: the state (V x 12 B past the limit) in the global
+      slice, the cliques in shared memory as far as they fit.
+    """
+    limit = SMEM_LIMIT
+    if ascent_smem_bytes(num_vertices, k, c, True) <= limit:
+        return "shared", c
+    state_smem = ascent_smem_bytes(num_vertices, k, 0, True) <= limit
+    used = ascent_smem_bytes(num_vertices, k, 0, state_smem)
+    per = (2 if num_vertices <= 65535 else 4) * k + 4
+    # the two arrays' 16-byte alignments add less than 32 bytes
+    n_near = min(c, max(0, (limit - used - 30) // per))
+    return ("split" if state_smem else "global"), n_near
+
+
+def _ascent_probe_inputs(dims: dict):
+    """One packing over ``V`` vertices, its members drawn from the
+    first ``min(V, 64 K)`` so that the cliques contend at any V."""
+    import numpy as np
+
+    c, k, v = dims["C"], dims["K"], dims["V"]
+    rng = np.random.default_rng(7 * c + k + v)
+    mv = torch.tensor(rng.integers(0, min(v, 64 * k), (c, k)),
+                      dtype=torch.int32)
+    w = torch.tensor(rng.uniform(0.1, 1.0, (c,)), dtype=torch.float32)
+    valid = torch.from_numpy(rng.uniform(size=c) > 0.2)
+    return (mv, w, valid), {"num_vertices": v}
+
+
+def _run_ascent(member_vertex, w, valid, num_vertices):
+    """The kernel side: one packing through the batched wrapper."""
+    out = dual_ascent(member_vertex[None], w[None], valid[None],
+                      num_vertices)
+    return tuple(o[0] for o in out)
+
+
+def _ascent_reference(member_vertex, w, valid, num_vertices):
+    """Ground truth: the plain ascent loop."""
+    out = _dual.dual_ascent_plain(member_vertex[None], w[None],
+                                  valid[None], num_vertices)
+    return tuple(o[0] for o in out)
+
+
+def _ascent_compare(got, want, tol):
+    """Bit for bit: lam, lam_avg, t, delta."""
+    import numpy as np
+
+    msgs = []
+    for name, g, r in zip(("lam", "lam_avg", "t", "delta"), got, want):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            msgs.append(f"{name}: kernel ({g.shape}, {g.dtype}) vs "
+                        f"reference ({r.shape}, {r.dtype})")
+        elif not np.array_equal(g.view(np.int32), r.view(np.int32)):
+            bad = int(np.sum(g.view(np.int32) != r.view(np.int32)))
+            msgs.append(f"{name}: {bad} value(s) differ in their bits")
+    return msgs
+
+
+@checked(Contract(
+    args={
+        "member_vertex": spec("C K", "int32"),
+        "w": spec("C"),
+        "valid": spec("C", "bool"),
+    },
+    returns=(spec("V"), spec("V"), spec("", "int32"), spec("")),
+    dims={"C": 16, "K": 3, "V": _SOLVE_PROBE_V},
+    static={"num_vertices": _SOLVE_PROBE_V},
+    kernel=KernelContract(
+        # kernel 3's rungs (shared residency), then split residency
+        # (the state takes most of shared memory, past 1,956 cliques
+        # the rest go to the global slice), global residency (V x 12 B
+        # past the limit) and a width past kernel 3's (read at run time)
+        ladder=(
+            {"C": 16, "K": 3, "V": _SOLVE_PROBE_V},
+            {"C": 100, "K": 4, "V": _SOLVE_PROBE_V},
+            {"C": 128, "K": 2, "V": _SOLVE_PROBE_V},
+            {"C": 4096, "K": 5, "V": 17000},
+            {"C": 256, "K": 3, "V": 20000},
+            {"C": 300, "K": 7, "V": _SOLVE_PROBE_V},
+        ),
+        make_inputs=_ascent_probe_inputs,
+        reference=_ascent_reference,
+        run=_run_ascent,
+        compare=_ascent_compare,
+        tol=0.0,
+    ),
+    batch=2,
+))
+def dual_ascent(member_vertex, w, valid, num_vertices, *,
+                num_iters: int = _dual.DEFAULT_NUM_ITERS,
+                tol: float = _dual.DEFAULT_TOL):
+    """The dual ascent of M packings in one launch (the ascent kernel):
+    :func:`~repic_tpu_torch.solver.dual.dual_ascent_plain`'s
+    ``(lam, lam_avg, t, delta)``, bit for bit.
+
+    One block per micrograph runs its steps to its own stop; where the
+    vertex state and the staged cliques live follows
+    :func:`ascent_residency`.  The launch syncs nothing: the telemetry
+    reads the steps after the chunk's packed fetch
+    (:func:`~repic_tpu_torch.telemetry.probes.defer_ascent_steps`).
+
+    Args:
+        member_vertex: ``(M, C, K)`` int32 vertex ids in ``[0, V)``.
+        w: ``(M, C)`` float32; valid: ``(M, C)`` bool.
+        num_vertices: V.
+    """
+    if w.device.type == "cpu":
+        return _dual.dual_ascent_plain(member_vertex, w, valid,
+                                       num_vertices, num_iters=num_iters,
+                                       tol=tol)
+    if w.device.type != "cuda":
+        raise ValueError(f"unsupported device {w.device}")
+    m, c, k = member_vertex.shape
+    dev = w.device
+    # the solver's ids may be int64 (a copy only where they are)
+    member_vertex = member_vertex.to(torch.int32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    _check(valid, torch.bool, (m, c), dev, "valid")
+    _check(member_vertex, torch.int32, (m, c, k), dev, "member_vertex")
+    _check(w, torch.float32, (m, c), dev, "w")
+    valid = valid.contiguous()
+    f32 = torch.float32
+    lam = torch.empty((m, num_vertices), dtype=f32, device=dev)
+    lam_avg = torch.empty_like(lam)
+    t = torch.empty((m,), dtype=torch.int32, device=dev)
+    delta = torch.empty((m,), dtype=f32, device=dev)
+    if m == 0:
+        return lam, lam_avg, t, delta
+    residency, n_near = ascent_residency(num_vertices, c, k)
+    state_smem = int(residency != "global")
+    lib = _build.load("ascent")
+    per_block = lib.repic_dual_ascent_slice_bytes(
+        c, k, num_vertices, n_near, state_smem)
+    scratch = torch.empty((max(m * per_block, 1),), dtype=torch.uint8,
+                          device=dev)
+    err = lib.repic_dual_ascent(
+        member_vertex.data_ptr(), w.data_ptr(), valid.data_ptr(),
+        lam.data_ptr(), lam_avg.data_ptr(), t.data_ptr(), delta.data_ptr(),
+        scratch.data_ptr(), m, c, k, num_vertices, n_near, state_smem,
+        int(num_iters), float(tol), _build.stream_ptr(dev),
+    )
+    _build.check(err, "dual_ascent")
+    LAUNCHES["dual_ascent"] += 1
+    ASCENT_RESIDENCY[residency] += 1
+    telemetry.probes.defer_ascent_steps(t)
+    return lam, lam_avg, t, delta
 
 
 def fused_cliqueset(

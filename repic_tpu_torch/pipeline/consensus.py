@@ -200,9 +200,13 @@ def consume_dispatch_report() -> dict | None:
 
     * ``attempts`` -- 1 plus the capacity escalations;
     * ``host_syncs`` -- blocking device-to-host reads: the first-visit
-      probes, each test of the dual ascent's and the greedy rounds'
-      loops, the compactions' boolean-mask selects, the packed fetch;
-    * ``ascent_steps`` -- trips of the ``lp_device`` dual ascent;
+      probes, each test of the greedy rounds' loops (and of the dual
+      ascent's, where it runs as the plain loop: on a CPU tensor), the
+      compactions' boolean-mask selects, the packed fetch, and after it
+      the one read of the ascent kernel's steps;
+    * ``ascent_steps`` -- trips of the ``lp_device`` dual ascent (of
+      the ascent kernel: the most steps of any micrograph, read after
+      the packed fetch);
     * ``stage_ms`` -- only while a profiler records on this thread
       (``consensus --profile DIR``, with ``REPIC_TPU_NO_PREFETCH=1`` so
       the chunks run on the profiled thread) and the chunk runs on one
@@ -235,9 +239,10 @@ def _journal_dispatches(journal, report: dict) -> None:
 
 
 def launch_counts() -> dict:
-    """This process's launches of each of the three kernels so far,
-    from the wrappers' ``LAUNCHES`` counters (a CPU tensor launches
-    nothing)."""
+    """This process's launches of each kernel so far, from the
+    wrappers' ``LAUNCHES`` counters (a CPU tensor launches nothing):
+    kernel 1, kernels 2 and 3, and the ascent kernel of the staged
+    ``lp_device`` program."""
     from repic_tpu_torch.ops import iou_pallas, megakernel
 
     return {"topk_neighbors": int(iou_pallas.LAUNCHES),
@@ -901,7 +906,7 @@ def run_consensus_batch(
     :func:`gang_consensus_chunk` runs the attempt.
     """
     # the batch's marks: its probes and every attempt count
-    sync_mark, step_mark = tlm_probes.chunk_counts()
+    sync_mark, step_mark = tlm_probes.chunk_counts(first=True)
     dev = resolve_device(device)
     if mesh is not None and len(mesh) > 1:
         dev = torch.device(mesh[0])

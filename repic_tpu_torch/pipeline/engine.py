@@ -365,7 +365,7 @@ def warmup(
 ) -> dict:
     """Run one tiny all-padding chunk program: the serve daemon's
     readiness gate.  On a CUDA device it first builds (if missing)
-    and loads the three kernel libraries, so a broken toolchain or
+    and loads every kernel library, so a broken toolchain or
     kernel build turns the readiness probe red instead of failing a
     user's first fused job.  Returns a summary for the serve journal;
     ``compile_s`` is the wall of the whole gate."""

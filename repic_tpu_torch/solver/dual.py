@@ -15,15 +15,23 @@ Per micrograph, for the packing problem ``max w.x  s.t.  A x <= 1``:
 
 Steps 1 and 2 are the ``consensus_ascent`` and ``consensus_rounding``
 ranges of a profiler trace (:func:`~repic_tpu_torch.utils.tracing.
-annotate`); each test of the ascent's loop is a counted host sync and
-each trip a counted ascent step (:mod:`repic_tpu_torch.telemetry.
-probes`).
+annotate`).
+
+Step 1 on a CUDA tensor is one launch of the ascent kernel
+(:func:`~repic_tpu_torch.ops.megakernel.dual_ascent`), bitwise equal
+to the plain loop :func:`dual_ascent_plain`, which runs on a CPU
+tensor and is every reference's ascent
+(:func:`solve_dual_decomposition_plain`).  In the plain loop each test
+is a counted host sync and each trip a counted ascent step
+(:mod:`repic_tpu_torch.telemetry.probes`); the kernel syncs nothing,
+and its steps are read after the chunk's packed fetch.
 
 The reference runs one ``while_loop`` per micrograph under ``vmap``;
-here the ``(M, C)`` batch steps together and a row that has stopped
-is frozen, which is what the vmapped loop does.
+the plain loop steps the ``(M, C)`` batch together and freezes a row
+that has stopped, which is what the vmapped loop does; the kernel runs
+one block per micrograph to its own stop.
 
-Float rules that the CUDA kernel (``csrc/dual.cu``) shares:
+Float rules that the CUDA kernels (``csrc/dual_ascent.cuh``) share:
 ``sum(lam[member_vertex])`` adds slot 0, 1, ..., K-1 in order; the
 price step is one fused multiply-add ``fma(eta, ax - 1, lam)`` — the
 reference's CPU program contracts it so — computed here exactly in
@@ -125,7 +133,7 @@ def price_step(lam, eta, ax):
     return torch.clamp_min(f.float(), 0.0)
 
 
-def solve_dual_decomposition(
+def dual_ascent_plain(
     member_vertex: torch.Tensor,
     w: torch.Tensor,
     valid: torch.Tensor,
@@ -133,64 +141,95 @@ def solve_dual_decomposition(
     *,
     num_iters: int = DEFAULT_NUM_ITERS,
     tol: float = DEFAULT_TOL,
-) -> DualSolveStats:
-    """Dual-decomposition solve of M packings at once.
+):
+    """The dual ascent of M packings as a loop of PyTorch operations,
+    the ``(M, C)`` batch stepping together: a row that has stopped is
+    frozen, and each test of the loop is a counted host sync and each
+    trip a counted ascent step.  The ground truth of the ascent kernel
+    (:func:`~repic_tpu_torch.ops.megakernel.dual_ascent`) and the
+    ascent of a CPU tensor.
 
-    Args:
-        member_vertex: ``(M, C, K)`` int vertex ids in ``[0, V)``.
-        w: ``(M, C)`` float32 non-negative weights.
-        valid: ``(M, C)`` bool; padded rows are inert.
-        num_vertices: vertex-space size V.
+    Returns ``(lam, lam_avg, t, delta)``: the final and the
+    Polyak-averaged prices ``(M, V)`` float32, the steps ``(M,)`` int32
+    and the last step's ``max|dlam| / eta0`` ``(M,)`` float32 (inf
+    before any step).
     """
+    b, c, k = member_vertex.shape
+    v_ = num_vertices
+    dev = w.device
+    f32 = torch.float32
+    mv = member_vertex.long()
+    zero = torch.zeros((), dtype=f32, device=dev)
+    wv = torch.where(valid, w, zero)
+    tgt = torch.where(
+        valid[..., None].expand(b, c, k), mv, torch.full_like(mv, v_)
+    ).reshape(b, c * k)
+    eta0 = torch.maximum(
+        wv.amax(-1), torch.tensor(1e-6, dtype=f32, device=dev)
+    )
+    tol_t = torch.tensor(tol, dtype=f32, device=dev)
+    half = num_iters // 2
+
+    t = torch.zeros(b, dtype=torch.int32, device=dev)
+    lam = torch.zeros((b, v_), dtype=f32, device=dev)
+    lam_sum = torch.zeros_like(lam)
+    n_tail = torch.zeros(b, dtype=torch.int32, device=dev)
+    delta = torch.full((b,), float("inf"), dtype=f32, device=dev)
+    active = (t < num_iters) & (delta > tol_t)
+    while tlm_probes.host_bool(active.any()):
+        tlm_probes.note_ascent_step()
+        red = wv - gather_sum(lam, mv)
+        x = (red > 0.0) & valid
+        ax = torch.zeros((b, v_ + 1), dtype=f32, device=dev).scatter_add(
+            1, tgt, x[..., None].expand(b, c, k).reshape(b, c * k).to(f32)
+        )[:, :v_]
+        eta = eta0 / (1.0 + t.to(f32))
+        lam_new = price_step(lam, eta, ax)
+        d_new = (lam_new - lam).abs().amax(-1) / eta0
+        in_tail = t >= half
+        sum_new = torch.where(in_tail[:, None], lam_sum + lam_new, lam_sum)
+        act = active[:, None]
+        lam = torch.where(act, lam_new, lam)
+        lam_sum = torch.where(act, sum_new, lam_sum)
+        n_tail = n_tail + (active & in_tail).to(torch.int32)
+        delta = torch.where(active, d_new, delta)
+        t = t + active.to(torch.int32)
+        active = (t < num_iters) & (delta > tol_t)
+    lam_avg = torch.where(
+        (n_tail > 0)[:, None],
+        lam_sum / torch.clamp_min(n_tail, 1).to(f32)[:, None],
+        lam,
+    )
+    return lam, lam_avg, t, delta
+
+
+def run_dual_ascent(member_vertex, w, valid, num_vertices, *,
+                    num_iters: int = DEFAULT_NUM_ITERS,
+                    tol: float = DEFAULT_TOL):
+    """The ascent of :func:`solve_dual_decomposition`: the ascent
+    kernel's wrapper, one launch on a CUDA tensor and
+    :func:`dual_ascent_plain` on a CPU tensor; the same ``(lam,
+    lam_avg, t, delta)``, bit for bit."""
+    # the kernels' module imports this one
+    from repic_tpu_torch.ops import megakernel
+
+    return megakernel.dual_ascent(member_vertex, w, valid, num_vertices,
+                                  num_iters=num_iters, tol=tol)
+
+
+def _solve(ascent, member_vertex, w, valid, num_vertices, num_iters, tol):
     with annotate("consensus_ascent", timed=True):
+        lam, lam_avg, t, delta = ascent(
+            member_vertex, w, valid, num_vertices,
+            num_iters=num_iters, tol=tol)
+
+    with annotate("consensus_rounding", timed=True):
         b, c, k = member_vertex.shape
         v_ = num_vertices
         dev = w.device
-        f32 = torch.float32
         mv = member_vertex.long()
-        zero = torch.zeros((), dtype=f32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
         wv = torch.where(valid, w, zero)
-        tgt = torch.where(
-            valid[..., None].expand(b, c, k), mv, torch.full_like(mv, v_)
-        ).reshape(b, c * k)
-        eta0 = torch.maximum(
-            wv.amax(-1), torch.tensor(1e-6, dtype=f32, device=dev)
-        )
-        tol_t = torch.tensor(tol, dtype=f32, device=dev)
-        half = num_iters // 2
-
-        t = torch.zeros(b, dtype=torch.int32, device=dev)
-        lam = torch.zeros((b, v_), dtype=f32, device=dev)
-        lam_sum = torch.zeros_like(lam)
-        n_tail = torch.zeros(b, dtype=torch.int32, device=dev)
-        delta = torch.full((b,), float("inf"), dtype=f32, device=dev)
-        active = (t < num_iters) & (delta > tol_t)
-        while tlm_probes.host_bool(active.any()):
-            tlm_probes.note_ascent_step()
-            red = wv - gather_sum(lam, mv)
-            x = (red > 0.0) & valid
-            ax = torch.zeros((b, v_ + 1), dtype=f32, device=dev).scatter_add(
-                1, tgt, x[..., None].expand(b, c, k).reshape(b, c * k).to(f32)
-            )[:, :v_]
-            eta = eta0 / (1.0 + t.to(f32))
-            lam_new = price_step(lam, eta, ax)
-            d_new = (lam_new - lam).abs().amax(-1) / eta0
-            in_tail = t >= half
-            sum_new = torch.where(in_tail[:, None], lam_sum + lam_new, lam_sum)
-            act = active[:, None]
-            lam = torch.where(act, lam_new, lam)
-            lam_sum = torch.where(act, sum_new, lam_sum)
-            n_tail = n_tail + (active & in_tail).to(torch.int32)
-            delta = torch.where(active, d_new, delta)
-            t = t + active.to(torch.int32)
-            active = (t < num_iters) & (delta > tol_t)
-        lam_avg = torch.where(
-            (n_tail > 0)[:, None],
-            lam_sum / torch.clamp_min(n_tail, 1).to(f32)[:, None],
-            lam,
-        )
-
-    with annotate("consensus_rounding", timed=True):
         # three candidates as one (3M) batch: zero, final, averaged prices
         prices3 = torch.cat([torch.zeros_like(lam), lam, lam_avg])
         mv3 = mv.repeat(3, 1, 1)
@@ -231,9 +270,44 @@ def solve_dual_decomposition(
         picked=best,
         iterations=t,
         gap=gap,
-        converged=delta <= tol_t,
+        converged=delta <= torch.tensor(tol, dtype=torch.float32,
+                                        device=dev),
         repairs=best_rep,
     )
+
+
+def solve_dual_decomposition(
+    member_vertex: torch.Tensor,
+    w: torch.Tensor,
+    valid: torch.Tensor,
+    num_vertices: int,
+    *,
+    num_iters: int = DEFAULT_NUM_ITERS,
+    tol: float = DEFAULT_TOL,
+) -> DualSolveStats:
+    """Dual-decomposition solve of M packings at once: the ascent
+    (:func:`run_dual_ascent`; on the card one kernel launch), then the
+    rounding.
+
+    Args:
+        member_vertex: ``(M, C, K)`` int vertex ids in ``[0, V)``.
+        w: ``(M, C)`` float32 non-negative weights.
+        valid: ``(M, C)`` bool; padded rows are inert.
+        num_vertices: vertex-space size V.
+    """
+    return _solve(run_dual_ascent, member_vertex, w, valid, num_vertices,
+                  num_iters, tol)
+
+
+def solve_dual_decomposition_plain(
+    member_vertex, w, valid, num_vertices, *,
+    num_iters: int = DEFAULT_NUM_ITERS, tol: float = DEFAULT_TOL,
+) -> DualSolveStats:
+    """:func:`solve_dual_decomposition` with the plain ascent loop on
+    any device: the references' solve, so that no reference holds the
+    ascent kernel against itself."""
+    return _solve(dual_ascent_plain, member_vertex, w, valid,
+                  num_vertices, num_iters, tol)
 
 
 @checked(Contract(

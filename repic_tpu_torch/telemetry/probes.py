@@ -23,8 +23,10 @@ deltas of these counters, and ``report`` prints run totals.
   :func:`host_int` and :func:`note_host_sync` count the blocking
   device-to-host reads of the chunk program (a loop test, a probe, a
   boolean-mask select, the packed fetch), :func:`note_ascent_step`
-  the trips of the ``lp_device`` ascent; :func:`chunk_counts` reads
-  both.  They reach the chunk's dispatch report, never the registry.
+  the trips of the ``lp_device`` ascent's plain loop, and
+  :func:`defer_ascent_steps` those of its kernel inside a chunk, read
+  after the chunk's packed fetch; :func:`chunk_counts` reads both.
+  They reach the chunk's dispatch report, never the registry.
 * **Device memory** -- the CUDA caching allocator's statistics,
   sampled on demand (snapshot time), never per operation.
 
@@ -106,6 +108,9 @@ _persistent_hits = 0
 _persistent_hit_seconds = 0.0
 _host_syncs = 0
 _ascent_steps = 0
+# per thread, while it runs a chunk: the ascent kernels' per-micrograph
+# steps (card tensors) not yet counted (``steps``, None outside a chunk)
+_deferred = threading.local()
 
 
 def note_build(seconds: float) -> None:
@@ -177,9 +182,39 @@ def note_ascent_step() -> None:
         _ascent_steps += 1
 
 
-def chunk_counts() -> tuple[int, int]:
+def defer_ascent_steps(t: torch.Tensor) -> None:
+    """Count the trips of an ascent that ran as one kernel launch in
+    the chunk this thread runs: the largest of its per-micrograph steps
+    ``t`` (a card tensor), which is the trip count of the batched loop
+    it replaces.  The launch syncs nothing: the chunk's last
+    :func:`chunk_counts`, after its packed fetch has drained the
+    stream, reads ``t``.  Outside a chunk (the runtime ladder's rung, a
+    contract probe) nothing is kept or counted."""
+    pending = getattr(_deferred, "steps", None)
+    if pending is not None:
+        pending.append(t)
+
+
+def chunk_counts(*, first: bool = False) -> tuple[int, int]:
     """(host syncs, ascent steps) so far, over every thread: the marks
-    a chunk's dispatch report is cut from."""
+    a chunk's dispatch report is cut from.  The chunk's first mark
+    (``first``) opens this thread's list of deferred ascent steps; a
+    later mark reads the list in and closes it.  The read is one
+    counted host sync, on the thread's own stream after the packed
+    fetch: it waits for no work."""
+    global _ascent_steps
+    pending = getattr(_deferred, "steps", None)
+    _deferred.steps = [] if first else None
+    if pending:
+        # a mesh chunk's launches are on its cards: one read from the
+        # first
+        home = pending[0].device
+        flat = torch.cat([t.reshape(-1).to(home) for t in pending]).cpu()
+        note_host_sync()
+        steps = sum(int(x.max()) for x in
+                    flat.split([t.numel() for t in pending]) if x.numel())
+        with _lock:
+            _ascent_steps += steps
     return _host_syncs, _ascent_steps
 
 

@@ -240,12 +240,12 @@ def test_real_tree_is_clean(port_program):
 
 def test_real_tree_non_vacuity(port_program):
     """A refactor that renamed ``_build.load`` or ``@checked`` would
-    silently blind this pass; pin what it sees: the three kernels'
-    launch sites, the 12 entries, the three budgets."""
+    silently blind this pass; pin what it sees: the four kernel
+    wrappers' launch sites, the 13 entries, the three budgets."""
     got = cost_summary([TREE])
-    assert got["launch_sites"] == 3
-    assert got["launch_functions"] >= 3
-    assert got["checked_entries"] == 12
+    assert got["launch_sites"] == 4
+    assert got["launch_functions"] >= 4
+    assert got["checked_entries"] == 13
     assert got["budgeted_entries"] == 3
     assert got["dispatch_reaching"] >= 10
 

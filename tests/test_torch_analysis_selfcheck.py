@@ -57,14 +57,14 @@ def test_check_gate_on_the_cpu_checks_every_entry():
                  "--device", "cpu"])
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
     assert proc.stdout.splitlines()[-1] == (
-        "checked 12 entry point(s) on cpu, skipped 0, found 0 issue(s)")
+        "checked 13 entry point(s) on cpu, skipped 0, found 0 issue(s)")
 
 
 def test_lint_deep_on_the_cpu_runs_the_kernel_probes():
     proc = _run(["-m", "repic_tpu_torch", "lint", "repic_tpu_torch/ops",
                  "--deep", "--device", "cpu", "--format", "json"])
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
-    assert "check: 6 entry point(s) on cpu, skipped 0" in proc.stderr
+    assert "check: 7 entry point(s) on cpu, skipped 0" in proc.stderr
     assert json.loads(proc.stdout) == []
 
 
@@ -77,14 +77,14 @@ def test_lint_deep_without_a_card_names_device_cpu():
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 1, proc.stdout[-4000:] + proc.stderr[-2000:]
-    assert "check: 6 entry point(s) on cuda, skipped 0" in proc.stderr
+    assert "check: 7 entry point(s) on cuda, skipped 0" in proc.stderr
     found = json.loads(proc.stdout)
     probes = {(f["rule"], f["message"].split("(")[0]) for f in found
               if f["rule"] in ("RT423", "RT425")}
     assert probes == {(rule, entry) for rule in ("RT423", "RT425")
                       for entry in ("pallas_topk_neighbors",
                                     "fused_clique_candidates",
-                                    "fused_dual_solve")}
+                                    "fused_dual_solve", "dual_ascent")}
     assert all("--device cpu" in f["message"] for f in found)
 
 

@@ -52,6 +52,7 @@ KERNEL_ENTRIES = (
     "repic_tpu_torch.ops.iou_pallas.pallas_topk_neighbors",
     "repic_tpu_torch.ops.megakernel.fused_clique_candidates",
     "repic_tpu_torch.ops.megakernel.fused_dual_solve",
+    "repic_tpu_torch.ops.megakernel.dual_ascent",
 )
 
 
@@ -435,7 +436,7 @@ def test_port_checks_clean_with_every_entry_and_no_skip(tree_report):
         f.format(show_hint=True) for f in tree_report.findings)
     assert tree_report.skipped == []
     routes = {c["entry"]: c["route"] for c in tree_report.checked}
-    assert len(routes) == 12
+    assert len(routes) == 13
     for expected in (
         "repic_tpu_torch.pipeline.consensus.consensus_one",
         "repic_tpu_torch.ops.solver.solve_greedy",

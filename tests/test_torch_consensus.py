@@ -305,7 +305,8 @@ def test_cli_on_cpu_matches_jax(jax_outputs, tmp_path):
     # on the CPU every wrapper runs its plain version: no launches
     assert stats["launches"] == {"topk_neighbors": 0,
                                  "fused_clique_candidates": 0,
-                                 "fused_dual_solve": 0}
+                                 "fused_dual_solve": 0,
+                                 "dual_ascent": 0}
     assert stats["demotions"] == 0
     _assert_same_boxes(str(out), jax_outputs["mini10017", "lp_device_fused"])
 

@@ -587,7 +587,8 @@ def test_served_fused_job_gives_the_cpu_daemons_bytes(cuda_device,
             digests[device] = artifact_digests(d.server.port, doc["id"])
         launched = {k: tmk.LAUNCHES[k] - before[k] for k in before}
         if device == "cuda":
-            assert all(v >= 1 for v in launched.values()), launched
+            assert all(launched[k] >= 1 for k in (
+                "fused_clique_candidates", "fused_dual_solve")), launched
         else:
             assert not any(launched.values()), launched
     assert len(digests["cuda"]) == 3
@@ -988,7 +989,7 @@ def test_one_replica_fleet_job_on_card(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_kernelcheck_on_card_clean(cuda_device):
-    """KERNELCHECK on the card: the three CUDA kernels themselves
+    """KERNELCHECK on the card: the four CUDA kernels themselves
     against their unfused paths over every ladder rung, 0 violations;
     the same run with one kernel's output perturbed records it."""
     import dataclasses
@@ -998,7 +999,7 @@ def test_kernelcheck_on_card_clean(cuda_device):
     before = tcons.launch_counts()
     with kernelcheck.scoped():
         kernelcheck.reset()
-        assert kernelcheck.run_registered(device=cuda_device.type) == 3
+        assert kernelcheck.run_registered(device=cuda_device.type) == 4
         assert kernelcheck.violations() == [], kernelcheck.report_text()
         entry = contracts.registry()[
             "repic_tpu_torch.ops.megakernel.fused_dual_solve"]
@@ -1053,7 +1054,8 @@ def test_gang_of_one_on_card_matches_goldens(cuda_device, tmp_path,
 def test_check_on_card_clean(cuda_device):
     """``check --device cuda``: every ``@checked`` entry of the port
     checked on the card, none skipped, nothing found; its kernel probes
-    (RT423/RT425 over every rung) launch kernels 1, 2 and 3."""
+    (RT423/RT425 over every rung) launch kernels 1, 2 and 3 and the
+    ascent kernel."""
     from repic_tpu_torch.analysis.semantic import run_check
 
     before = tcons.launch_counts()
@@ -1061,7 +1063,7 @@ def test_check_on_card_clean(cuda_device):
                        device=cuda_device.type)
     assert report.findings == [], [f.format() for f in report.findings]
     assert report.skipped == []
-    assert len(report.checked) == 12
+    assert len(report.checked) == 13
     after = tcons.launch_counts()
     assert all(after[k] > before[k] for k in after), (before, after)
 
@@ -1173,3 +1175,180 @@ def test_stage_split_on_card(cuda_device, tmp_path, monkeypatch):
         assert any(w["ts"] < e["ts"] + e["dur"]
                    and e["ts"] < w["ts"] + w["dur"]
                    for e in lane for w in work), name
+
+
+# -- the ascent kernel: the staged lp_device program's dual ascent -----
+
+#: case -> (M, C, K, V, members drawn from the first `span` vertices
+#: (None: all V), the residency the chooser must take)
+ASCENT_CASES = {
+    "shared": (4, 4096, 3, 1024, None, "shared"),
+    # the k5_mixed chunk's size, a fifth of the rows padded: 13,236
+    # cliques in shared memory, the rest in the global slice
+    "split": (8, 24576, 5, 3840, None, "split"),
+    # V x 12 B past shared memory: the state in the global slice
+    "global": (2, 2048, 4, 20000, 256, "global"),
+    # one micrograph: the runtime ladder's batch of one
+    "m1": (1, 20000, 5, 3840, None, "split"),
+    # a width past kernel 3's, read at run time (so is the global
+    # case's: the state in the global slice takes any width that way)
+    "k7": (3, 20000, 7, 3840, None, "split"),
+}
+
+
+def _ascent_inputs(cuda_device, m, c, k, v, span=None, seed=0):
+    rng = np.random.default_rng(seed)
+    mv = rng.integers(0, span or v, (m, c, k)).astype(np.int32)
+    w = rng.uniform(0.1, 1.0, (m, c)).astype(np.float32)
+    valid = rng.uniform(size=(m, c)) < 0.8
+    return [t(a, cuda_device) for a in (mv, w, valid)]
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(n(g).view(np.int32),
+                                      n(w).view(np.int32))
+
+
+def _ascent_matches_plain(args, v, residency, **kw):
+    """One launch of the ascent kernel, counted under its residency,
+    bit for bit the plain loop run on the card."""
+    from repic_tpu_torch.solver import dual as tdual
+
+    launches = tmk.LAUNCHES["dual_ascent"]
+    placed = tmk.ASCENT_RESIDENCY[residency]
+    got = tmk.dual_ascent(*args, v, **kw)
+    assert tmk.LAUNCHES["dual_ascent"] == launches + 1
+    assert tmk.ASCENT_RESIDENCY[residency] == placed + 1
+    _same_bits(got, tdual.dual_ascent_plain(*args, v, **kw))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ASCENT_CASES))
+def test_ascent_kernel_is_the_plain_loop_bitwise(cuda_device, case):
+    m, c, k, v, span, residency = ASCENT_CASES[case]
+    assert tmk.ascent_residency(v, c, k)[0] == residency
+    args = _ascent_inputs(cuda_device, m, c, k, v, span)
+    _ascent_matches_plain(args, v, residency)
+
+
+@pytest.mark.cuda
+def test_ascent_kernel_rows_stop_at_their_own_step(cuda_device):
+    """Rows that reach the tolerance at different steps: each block
+    stops at its own, as each row of the plain loop is frozen."""
+    mv, w, valid = _ascent_inputs(cuda_device, 6, 3000, 3, 600)
+    valid[0] = False
+    valid[1, 1500:] = False
+    got = _ascent_matches_plain((mv, w, valid), 600, "shared", tol=0.05)
+    steps = n(got[2])
+    assert steps[0] == 1 and len(set(steps.tolist())) > 1
+
+
+@pytest.mark.cuda
+def test_ascent_kernel_solve_picks_are_the_plain_solves(cuda_device):
+    """``solve_dual_decomposition`` on the card (the ascent kernel, then
+    the rounding) against the same solve with the plain loop, at the
+    k5_mixed chunk's size: picks, steps, gap, convergence, repairs."""
+    from repic_tpu_torch.solver import dual as tdual
+
+    m, c, k, v, span, _ = ASCENT_CASES["split"]
+    args = _ascent_inputs(cuda_device, m, c, k, v, span, seed=1)
+    launches = tmk.LAUNCHES["dual_ascent"]
+    got = tdual.solve_dual_decomposition(*args, v)
+    assert tmk.LAUNCHES["dual_ascent"] == launches + 1
+    want = tdual.solve_dual_decomposition_plain(*args, v)
+    assert tmk.LAUNCHES["dual_ascent"] == launches + 1
+    for name in got._fields:
+        np.testing.assert_array_equal(n(getattr(got, name)),
+                                      n(getattr(want, name)), name)
+
+
+@pytest.mark.cuda
+def test_ladder_device_rung_takes_the_ascent_kernel(cuda_device):
+    """The host boundary of the ``lp_device`` rung (one packing, a
+    batch of one) launches the ascent kernel and picks as the plain
+    solve does."""
+    from repic_tpu_torch.solver import dual as tdual
+
+    mv, w, valid = solve_inputs(20000, 5, 3840, seed=3)
+    mv, w = mv[valid], w[valid]
+    launches = tmk.LAUNCHES["dual_ascent"]
+    picked, converged = tdual.solve_lp_device_host(mv, w, 3840,
+                                                   device=cuda_device)
+    assert tmk.LAUNCHES["dual_ascent"] == launches + 1
+    want = tdual.solve_dual_decomposition_plain(
+        *(t(a, cuda_device)[None] for a in (mv, w, np.ones_like(valid[valid]))),
+        3840)
+    np.testing.assert_array_equal(picked, n(want.picked[0]))
+    assert converged == bool(want.converged[0])
+
+
+@pytest.mark.cuda
+def test_ascent_layout_bytes_are_the_choosers(cuda_device):
+    """The chooser's shared-memory bytes are the kernel's layout."""
+    from repic_tpu_torch import _build
+
+    lib = _build.load("ascent")
+    for c, k, v, n_near, state in [(4096, 3, 1024, 4096, 1),
+                                   (24576, 5, 3840, 13236, 1),
+                                   (2048, 4, 20000, 2048, 0),
+                                   (5000, 6, 70000, 900, 0),
+                                   (100, 1, 7, 0, 1)]:
+        assert lib.repic_dual_ascent_smem_bytes(c, k, v, n_near, state) \
+            == tmk.ascent_smem_bytes(v, k, n_near, bool(state))
+        assert tmk.ascent_smem_bytes(v, k, n_near, bool(state)) \
+            <= tmk.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,v", [(c, k, SOLVE_V) for c, k in SOLVE_LADDER]
+                         + [(20000, 3, 3072)])
+def test_kernel_3_steps_equal_the_ascent_kernels(cuda_device, c, k, v):
+    """Kernel 3 and the ascent kernel run the same ascent: kernel 3's
+    steps (its chain's first column) are the ascent kernel's."""
+    mv, w, valid = (t(a, cuda_device)[None]
+                    for a in solve_inputs(c, k, v))
+    tmk.fused_dual_solve(mv, w, valid, v)
+    steps = n(tmk.SOLVE_CHAIN[:, 0])
+    np.testing.assert_array_equal(
+        steps, n(tmk.dual_ascent(mv, w, valid, v)[2]))
+
+
+@pytest.mark.cuda
+def test_staged_chunk_launches_the_ascent_once_an_attempt(cuda_device,
+                                                          monkeypatch):
+    """A staged ``lp_device`` chunk on the card against the same chunk
+    on the CPU: the same attempts, ascent steps and picks; one ascent
+    launch and one fetch an accepted attempt (2 dispatches); no loop
+    test of the ascent among the host syncs."""
+    from repic_tpu_torch.parallel.batching import PaddedBatch
+    from repic_tpu_torch.utils.synthetic import synthesize
+
+    m, k, np_ = 2, 5, 48
+    xy, conf, mask = synthesize(m, k, np_, seed=0, spacing=60.0,
+                                jitter=40.0)
+    batch = PaddedBatch(xy, conf, mask, tuple(f"m{i}" for i in range(m)),
+                        np.full((m, k), np_, np.int32))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        monkeypatch.setattr(tcons, "_LAST_GOOD_CONFIG", {})
+        monkeypatch.setattr(tcons, "_RECENT_REQUIREMENTS", {})
+        launches = tmk.LAUNCHES["dual_ascent"]
+        res, _packed = tcons.run_consensus_batch(batch, BOX, device=dev)
+        report = tcons.consume_dispatch_report()
+        runs[str(dev)] = (report, n(res.picked),
+                          tmk.LAUNCHES["dual_ascent"] - launches)
+    (cpu, cpu_picks, cpu_launches), (card, card_picks, card_launches) = (
+        runs["cpu"], runs[str(cuda_device)])
+    np.testing.assert_array_equal(card_picks, cpu_picks)
+    assert card["attempts"] == cpu["attempts"] > 1
+    assert card["ascent_steps"] == cpu["ascent_steps"] > 0
+    assert (cpu_launches, card_launches) == (0, card["attempts"])
+    assert (cpu["dispatches"], card["dispatches"]) == (1, 2)
+    # the plain loop tests once more than it steps, in every attempt;
+    # the card reads its launches' steps once, after the fetch
+    assert cpu["host_syncs"] - card["host_syncs"] == \
+        cpu["ascent_steps"] + cpu["attempts"] - 1

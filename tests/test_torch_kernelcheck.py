@@ -35,6 +35,9 @@ KERNEL_ENTRIES = (
     "ops.megakernel.fused_clique_candidates",
     "ops.megakernel.fused_dual_solve",
 )
+#: the port's own kernel entries, with no counterpart in the reference:
+#: the staged program's dual ascent (one launch an attempt)
+PORT_ONLY = ("ops.megakernel.dual_ascent",)
 
 
 def test_kernelcheck_clean_on_the_real_registry():
@@ -43,7 +46,7 @@ def test_kernelcheck_clean_on_the_real_registry():
     with kernelcheck.scoped():
         kernelcheck.reset()
         probed = kernelcheck.run_registered(device="cpu")
-        assert probed == 3
+        assert probed == 4
         assert kernelcheck.violations() == []
         assert "no violations" in kernelcheck.report_text()
 
@@ -159,7 +162,8 @@ def _registries():
 def test_registry_matches_the_reference():
     ref, port = _registries()
     assert len(ref) == 12
-    assert sorted(port) == sorted(ref)
+    assert all(port[n].contract.kernel is not None for n in PORT_ONLY)
+    assert sorted(set(port) - set(PORT_ONLY)) == sorted(ref)
     for name in ref:
         j, t = ref[name].contract, port[name].contract
         assert t.dims == j.dims, name
@@ -187,9 +191,9 @@ def test_kernelcheck_without_a_card_is_a_violation(monkeypatch):
         assert v["kind"] == "kernel-no-device" and v["entry"] == "cuda"
         assert "0 kernel(s) probed on cuda" in kernelcheck.report_text()
         kernelcheck.reset()
-        assert kernelcheck.run_registered(device="cpu") == 3
+        assert kernelcheck.run_registered(device="cpu") == 4
         assert kernelcheck.report_text() == (
-            "KERNELCHECK: no violations (3 kernel(s) probed on cpu)")
+            "KERNELCHECK: no violations (4 kernel(s) probed on cpu)")
 
 
 def test_cli_kernelcheck_defaults_to_the_card(monkeypatch):
