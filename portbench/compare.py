@@ -48,6 +48,18 @@ def _keys(members: np.ndarray, base: int) -> np.ndarray:
     return key
 
 
+def key_base(k: int, n_base: int, *member_sets) -> int:
+    """The base of the clique keys: ``n_base``, or one more than the
+    largest member id where that is larger, so that a key names one
+    clique whatever the micrograph's size."""
+    top = max([int(m.max()) for m in member_sets if m.size] + [-1])
+    base = max(int(n_base), top + 1)
+    if base ** k >= 2 ** 63:
+        raise ValueError(f"clique keys of {k} ids under {base} overflow "
+                         "int64")
+    return base
+
+
 def consensus_numbers(port: dict, ref, n_base: int = 4096) -> dict:
     """The numbers of one micrograph.
 
@@ -62,6 +74,10 @@ def consensus_numbers(port: dict, ref, n_base: int = 4096) -> dict:
     """
     valid = port["valid"]
     members = port["members"][valid]
+    picked = port["picked"]
+    k = members.shape[1]
+    pm = port["members"][picked]
+    n_base = key_base(k, n_base, members, ref.members)
     pk = _keys(members, n_base)
     rk = _keys(ref.members, n_base)
     shared, pi, ri = np.intersect1d(pk, rk, assume_unique=False,
@@ -79,9 +95,6 @@ def consensus_numbers(port: dict, ref, n_base: int = 4096) -> dict:
             np.any(port["rep_xy"][valid][pi] != ref.rep_xy[ri], axis=1)
         if rep_bad.any():
             gap = max(gap, 1.0)
-    picked = port["picked"]
-    k = members.shape[1]
-    pm = port["members"][picked]
     vid = (pm + np.arange(k)[None] * n_base).ravel()
     conflicts = (len(vid) - len(np.unique(vid))) + int(
         np.sum(picked & ~valid))

@@ -46,7 +46,7 @@ class Cell:
         from repic_tpu_torch.parallel.batching import PaddedBatch
 
         cfg = self.config
-        gen = synth.GENERATORS[cfg["generator"]]
+        gen = synth.generator(cfg["generator"])
         corpus = np.random.default_rng(synth.rng_seed(cfg["corpus_seed"], 0))
         order = np.random.default_rng(synth.rng_seed(self.seed, 0))
         m_all, m, n = cfg["micrographs"], cfg["chunk"], cfg["n_pad"]

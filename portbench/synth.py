@@ -16,6 +16,10 @@ the same arrays on every machine; the harness passes the run's
 * :func:`micrograph` copies ``synthetic_micrograph`` (unit Gaussian
   noise plus 600-950 dark Gaussian blobs of sigma box/6).
 
+A consensus configuration names its generator; :func:`generator` finds
+it here or, for a name not here, in ``portbench/generators/<name>.py``,
+so a configuration can bring its generator as a new file.
+
 The BOX files that the originals write round coordinates and
 confidences; the copies round the same way, so the arrays hold what the
 program would read from those files.
@@ -23,7 +27,12 @@ program would read from those files.
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def rng_seed(seed: int, stream: int) -> np.random.SeedSequence:
@@ -102,3 +111,20 @@ def micrograph(rng, *, size: int = 4096, box: int = 180,
 
 
 GENERATORS = {"density_10017": density_10017, "box_tree": box_tree}
+
+
+def generator(name: str):
+    """The consensus generator ``name``: :data:`GENERATORS`' entry, else
+    ``portbench/generators/<name>.py``'s ``generate(rng, *, pickers,
+    **args)``."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    path = os.path.join(HERE, "generators", name + ".py")
+    if not os.path.exists(path):
+        raise ValueError(f"unknown generator {name!r}: not in GENERATORS "
+                         f"and no {path}")
+    spec = importlib.util.spec_from_file_location(
+        "portbench.generators." + name.replace(".", "__"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.generate

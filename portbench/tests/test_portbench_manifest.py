@@ -88,9 +88,10 @@ def test_manifest_keeps_to_the_contract(manifest):
 
 
 def test_a_new_cell_config_and_metric_need_only_new_files(tmp_path):
-    """Copy the benchmark, add a configuration, a traffic mix, a
-    metric and a cell as new files and manifest entries only, and
-    resolve them from the copy."""
+    """Copy the benchmark, add configurations, a traffic mix, a
+    generator, a metric and cells as new files and manifest entries
+    only, resolve them from the copy, and run the small dense field
+    (its generator the new file) there on the CPU."""
     shutil.copytree(os.path.join(ROOT, "portbench"), tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     man = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -109,13 +110,28 @@ def test_a_new_cell_config_and_metric_need_only_new_files(tmp_path):
         "def read(ctx):\n    return ctx['trace']['steps']\n")
     (tmp_path / "portbench" / "limits" / "k4_mixed.consensus_greedy.json"
      ).write_text(json.dumps({"limits": {"packing_conflicts": 0}}))
-    man["configs"].append({"name": "k4_mixed", "source": "x",
-                           "file": "portbench/configs/k4_mixed.json",
-                           "reduced": [], "why": "x"})
-    man["workloads"].append({"name": "k4_mixed.consensus_greedy",
-                             "config": "k4_mixed",
-                             "traffic": "consensus_greedy", "chips": 1,
-                             "why": "x"})
+    # a dense field whose generator comes as a new file
+    shutil.copy(os.path.join(ROOT, "portbench", "generators",
+                             "dense_field.py"),
+                tmp_path / "portbench" / "generators" / "dense_grid.py")
+    dense = dict(name="dense_small", pickers=["a", "b", "c", "d"],
+                 box_size=180, threshold=0.3, generator="dense_grid",
+                 generator_args={"n": 300}, corpus_seed=0, n_pad=300,
+                 micrographs=4, chunk=2, precision="float32")
+    (tmp_path / "portbench" / "configs" / "dense_small.json").write_text(
+        json.dumps(dense))
+    limits = json.load(open(os.path.join(ROOT, "portbench", "limits",
+                                         "k5_mixed.consensus.json")))
+    (tmp_path / "portbench" / "limits" / "dense_small.consensus.json"
+     ).write_text(json.dumps(limits))
+    for name, traffic in (("k4_mixed", "consensus_greedy"),
+                          ("dense_small", "consensus")):
+        man["configs"].append({"name": name, "source": "x",
+                               "file": f"portbench/configs/{name}.json",
+                               "reduced": [], "why": "x"})
+        man["workloads"].append({"name": f"{name}.{traffic}",
+                                 "config": name, "traffic": traffic,
+                                 "chips": 1, "why": "x"})
     man["per_layer"].append({"name": "consensus.chunks", "unit": "chunks",
                              "better": "higher", "source": "program_counter",
                              "layer": "chunk program",
@@ -123,9 +139,11 @@ def test_a_new_cell_config_and_metric_need_only_new_files(tmp_path):
                              "workloads": ["k4_mixed.consensus_greedy"]})
     for m in man["end_to_end"]:
         if m["name"] == "consensus_mic_per_s":
-            m["workloads"].append("k4_mixed.consensus_greedy")
+            m["workloads"] += ["k4_mixed.consensus_greedy",
+                               "dense_small.consensus"]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
     code = (
+        "import os\n"
         "from portbench import run, compare\n"
         "s = run.resolve(run.load_manifest(), 'k4_mixed.consensus_greedy')\n"
         "assert s['config']['name'] == 'k4_mixed'\n"
@@ -137,11 +155,23 @@ def test_a_new_cell_config_and_metric_need_only_new_files(tmp_path):
         " 'consensus.chunks'], ctx)['consensus.chunks']['value'] == 3\n"
         "assert run.kind_module(s['traffic']).Cell\n"
         "assert compare.load_limits('k4_mixed.consensus_greedy')\n"
+        "from portbench import synth\n"
+        "assert run.HERE.startswith(os.getcwd())\n"
+        "assert synth.generator('dense_grid').__module__ =="
+        " 'portbench.generators.dense_grid'\n"
+        "s = run.resolve(run.load_manifest(), 'dense_small.consensus')\n"
+        "r, rows = run.run(s, 'dense_small.consensus', 2**33 + 5, 0.2,"
+        " False, device='cpu')\n"
+        "assert r['correct'], rows\n"
+        "assert r['attempted'] >= 4 and r['failed'] == 0, r\n"
+        "assert set(r['metrics']) == {'consensus_mic_per_s', 'setup_s'}\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": ROOT,
+                              "REPIC_TPU_NO_CONFIG_CACHE": "1"})
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_run_refuses_without_a_card(monkeypatch, capsys):

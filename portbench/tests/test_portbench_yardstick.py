@@ -13,14 +13,16 @@ SEEDS = [0, 7, 2**31 + 11, 2**40 + 3, -5]
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("gen", ["density_10017", "box_tree", "micrograph"])
+@pytest.mark.parametrize("gen", ["density_10017", "box_tree", "micrograph",
+                                 "dense_field"])
 def test_generators_repeat_for_their_seed(gen, seed):
     def draw(s):
         rng = np.random.default_rng(synth.rng_seed(s, 0))
         if gen == "micrograph":
             return [synth.micrograph(rng, size=256, particles=(5, 9))]
-        kw = {"box_tree": {"n_per": 30}, "density_10017": {}}[gen]
-        return synth.GENERATORS[gen](rng, pickers=3, **kw)
+        kw = {"box_tree": {"n_per": 30}, "density_10017": {},
+              "dense_field": {"n": 50}}[gen]
+        return synth.generator(gen)(rng, pickers=3, **kw)
 
     a, b, c = draw(seed), draw(seed), draw(seed + 1)
     for (x, y), (u, v) in zip(a, b):
@@ -189,3 +191,13 @@ def test_the_window_runs_whole_passes():
         w = run.run_window(cell, seconds, lambda: None)
         assert w["steps"] % 3 == 0 and w["units"] == 2 * w["steps"]
         assert w["seconds"] >= seconds
+
+
+def test_generators_by_name():
+    """The frozen generators keep their functions; another name is a
+    file of ``portbench/generators/``."""
+    assert synth.generator("box_tree") is synth.box_tree
+    assert synth.generator("density_10017") is synth.density_10017
+    assert callable(synth.generator("dense_field"))
+    with pytest.raises(ValueError, match="no_such_field"):
+        synth.generator("no_such_field")
